@@ -1,5 +1,6 @@
-"""The CUDA kernels' arithmetic (zkfl_tpu_torch/csrc/bn254.cuh), compiled for
-the host with g++ and held against Python integers.
+"""The CUDA kernels' arithmetic (zkfl_tpu_torch/csrc/bn254.cuh and
+poseidon.cuh), compiled for the host with g++ and held against Python
+integers.
 
 The kernels themselves run only on a card (chip_smoke.py compares them with
 their plain torch versions there); their per-element functions are
@@ -21,6 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "zkfl_tpu_torch" / "csrc"
 
 HARNESS = r"""
 #include "bn254.cuh"
+#include "poseidon.cuh"
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
@@ -31,6 +33,7 @@ template <class F>
 void field_op(const char* op, const uint32_t* in, uint32_t* out) {
   const uint32_t* a = in; const uint32_t* b = in + NL; const uint32_t* c = in + 2 * NL;
   if (!strcmp(op, "mont_mul")) mont_mul<F>(out, a, b);
+  else if (!strcmp(op, "mont_sqr")) mont_sqr<F>(out, a);
   else if (!strcmp(op, "add")) add<F>(out, a, b);
   else if (!strcmp(op, "sub")) sub<F>(out, a, b);
   else if (!strcmp(op, "to_mont")) to_mont<F>(out, a);
@@ -52,13 +55,36 @@ void g1_op(const char* op, const uint32_t* in, uint32_t* out) {
   memcpy(out, &r, sizeof r);
 }
 
+// consts: the round constants, then the MDS matrix (Montgomery elements).
+template <int T>
+void poseidon_op(const uint32_t* consts, const uint32_t* in, uint32_t* out) {
+  uint32_t s[T][NL];
+  memcpy(s, in, sizeof s);
+  poseidon_permute<T>(s, consts, consts + (POSEIDON_RF + poseidon_rp(T)) * T * NL);
+  memcpy(out, s, sizeof s);
+}
+
+void poseidon_t(int t, const uint32_t* consts, const uint32_t* in, uint32_t* out) {
+  if (t == 2) poseidon_op<2>(consts, in, out);
+  else if (t == 3) poseidon_op<3>(consts, in, out);
+  else if (t == 17) poseidon_op<17>(consts, in, out);
+  else { fprintf(stderr, "bad width %d\n", t); exit(2); }
+}
+
 int main(int argc, char** argv) {
   const char* field = argv[1]; const char* op = argv[2];
   int in_words = atoi(argv[3]), out_words = atoi(argv[4]);
-  std::vector<uint32_t> in(in_words), out(out_words);
+  std::vector<uint32_t> in(in_words), out(out_words), consts;
+  if (argc > 5) {  // a file of extra words: the Poseidon constants
+    FILE* f = fopen(argv[5], "rb");
+    uint32_t w;
+    while (fread(&w, 4, 1, f) == 1) consts.push_back(w);
+    fclose(f);
+  }
   while (fread(in.data(), 4, in_words, stdin) == (size_t)in_words) {
     if (!strcmp(field, "fr")) field_op<Fr>(op, in.data(), out.data());
     else if (!strcmp(field, "fq")) field_op<Fq>(op, in.data(), out.data());
+    else if (!strcmp(field, "poseidon")) poseidon_t(atoi(op), consts.data(), in.data(), out.data());
     else g1_op(op, in.data(), out.data());
     fwrite(out.data(), 4, out_words, stdout);
   }
@@ -81,11 +107,13 @@ def harness(tmp_path_factory):
         check=True, capture_output=True,
     )
 
-    def run(field, op, records, out_words):
-        """records: uint32 [n, in_words] -> uint32 [n, out_words]."""
+    def run(field, op, records, out_words, consts=None):
+        """records: uint32 [n, in_words] -> uint32 [n, out_words]; consts:
+        a file of extra words for the op (the Poseidon constants)."""
         records = np.ascontiguousarray(records, dtype=np.uint32)
+        extra = [str(consts)] if consts is not None else []
         res = subprocess.run(
-            [str(exe), field, op, str(records.shape[1]), str(out_words)],
+            [str(exe), field, op, str(records.shape[1]), str(out_words), *extra],
             input=records.tobytes(), capture_output=True, check=True,
         )
         return np.frombuffer(res.stdout, dtype=np.uint32).reshape(-1, out_words)
@@ -119,6 +147,7 @@ def test_field_ops_match_integers(harness, name, p):
     k = 987654321 * c.mont_r % p
     ab = np.concatenate([_words(a), _words(b)], axis=1)
     assert _ints(harness(name, "mont_mul", ab, 8)) == [x * y * rinv % p for x, y in zip(a, b)]
+    assert _ints(harness(name, "mont_sqr", _words(a), 8)) == [x * x * rinv % p for x in a]
     assert _ints(harness(name, "add", ab, 8)) == [(x + y) % p for x, y in zip(a, b)]
     assert _ints(harness(name, "sub", ab, 8)) == [(x - y) % p for x, y in zip(a, b)]
     assert _ints(harness(name, "to_mont", _words(a), 8)) == [x * c.mont_r % p for x in a]
@@ -181,3 +210,23 @@ def test_g1_padd_pdbl(harness):
     assert _g1_affine(out) == [g1_add(a, b) for a, b in zip(ps, qs)]
     out = harness("g1", "pdbl", _g1_words(pts + [None]), 24)
     assert _g1_affine(out) == [g1_add(a, a) for a in pts + [None]]
+
+
+@pytest.mark.parametrize("t", [2, 3, 17])
+def test_poseidon_permutation(harness, tmp_path, t):
+    """poseidon.cuh's permutation (K5's per-thread body) against the
+    reference, on an all-(p-1) state, the zero state and random states."""
+    from zkfl_tpu.poseidon.grain import poseidon_params
+    from zkfl_tpu.poseidon.reference import poseidon_permutation
+
+    rr = FR_CONSTS.mont_r
+    rinv = pow(rr, -1, FR)
+    C, M = poseidon_params(t)
+    consts = tmp_path / "consts.bin"
+    consts.write_bytes(_words([v * rr % FR for v in C + [x for row in M for x in row]]).tobytes())
+    states = [[FR - 1] * t, [0] * t] + [_rand(FR, t)[:t] for _ in range(3)]
+    flat = [v * rr % FR for st in states for v in st]
+    out = harness("poseidon", str(t), _words(flat).reshape(len(states), 8 * t), 8 * t, consts)
+    got = [v * rinv % FR for v in _ints(out.reshape(-1, 8))]
+    want = [v for st in states for v in poseidon_permutation(st)]
+    assert got == want

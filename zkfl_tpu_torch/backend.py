@@ -2,9 +2,12 @@
 
 The CUDA sources under ``csrc/`` are compiled by ``nvcc`` into one shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds).  The build happens at first use, into
+headers, so a build takes seconds): one ``nvcc -c`` per source, all started
+together, then one link.  The build happens at first use, into
 ``build/zkfl_tpu_torch/<hash of the sources and flags>/`` beside the
 package, so a fresh checkout builds everything on its first kernel launch.
+(The host C++ sources under ``csrc/host/`` are not CUDA kernels; native.py
+builds them with g++.)
 
 Every C entry point returns ``cudaGetLastError()``; ``launch`` raises when it
 is not 0.  ``LAUNCHES`` counts kernel launches by op name: the wrappers in
@@ -19,6 +22,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -29,7 +34,7 @@ BUILD_ROOT = PKG_DIR.parent / "build" / "zkfl_tpu_torch"
 LIB_NAME = "libzkfl_cuda.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -43,6 +48,7 @@ _SIGNATURES = {
     "zk_normalize_raw": [_P, _P, _N, _P],
     "zk_g1_padd": [_P, _P, _P, _N, _P],
     "zk_g1_pdbl": [_P, _P, _N, _P],
+    "zk_poseidon": [ctypes.c_int, _P, _P, _P, _P, _N, _P],
 }
 
 _lib = None
@@ -80,6 +86,12 @@ def gpu_name_and_power_limit() -> str | None:
     return out.splitlines()[0].strip() if out else None
 
 
+def max_sm_clock_mhz() -> float | None:
+    """`nvidia-smi --query-gpu=clocks.max.sm` of the first card, or None."""
+    out = _run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"])
+    return float(out.splitlines()[0]) if out else None
+
+
 def probe() -> dict:
     """Toolchain and card facts, for logs and reports."""
     nvcc = nvcc_path()
@@ -112,10 +124,16 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def _timed_run(cmd):
+    t0 = time.monotonic()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    return res, time.monotonic() - t0
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library (once per source hash);
-    nvcc's output, with ptxas's register and spill report, goes to
-    build.log beside it."""
+    """Compile csrc/*.cu into the shared library (once per source hash):
+    one nvcc process per source, all at once, then a link.  nvcc's output,
+    with ptxas's register and spill report, goes to build.log beside it."""
     out_dir = build_dir()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
@@ -124,12 +142,27 @@ def build() -> Path:
     if nvcc is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    tag = os.getpid()
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [out_dir / f".{src.stem}.{tag}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        results = list(pool.map(_timed_run, cmds))
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    if all(res.returncode == 0 for res, _ in results):
+        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)]
+        results.append(_timed_run(link))
+        cmds.append(link)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    # "# nvcc <source or link>: <s> s" lines give each process's wall time.
+    names = [src.name for src in srcs] + ["link"]
+    log = [f"# nvcc {name}: {secs:.1f} s\n{' '.join(cmd)}\n{res.stdout}{res.stderr}"
+           for name, cmd, (res, secs) in zip(names, cmds, results)]
+    failed = [entry[-4000:] for entry, (res, _) in zip(log, results) if res.returncode != 0]
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)
     return lib_path
 

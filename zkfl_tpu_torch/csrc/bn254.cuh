@@ -122,6 +122,14 @@ ZK_FN void mont_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) 
   cond_sub<F>(r, t, t[NL]);
 }
 
+// a^2 * R^-1 mod p: the Montgomery product of a with itself, as
+// PallasField._k_mont_sqr (zkfl_tpu/ops/limb_kernels.py:360) reuses the
+// multiply's emitter.  Canonical output for canonical a.
+template <class F>
+ZK_FN void mont_sqr(uint32_t r[NL], const uint32_t a[NL]) {
+  mont_mul<F>(r, a, a);
+}
+
 // (a + b) mod p for canonical a, b.
 template <class F>
 ZK_FN void add(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {

@@ -1,7 +1,7 @@
 // K1: elementwise BN254 field ops over limb-major [8, n] uint32 tensors.
 //
 // Replaces the Pallas field kernels of zkfl_tpu/ops/limb_kernels.py:
-//   PallasField._k_mont_mul (:357), _k_add (:364), _k_sub (:367),
+//   PallasField._k_mont_mul (:357), _k_mont_sqr (:360), _k_add (:364), _k_sub (:367),
 //   _k_from_mont (:370), _k_to_mont (:374), _k_mul_sub_mul_const (:396) and
 //   the mont_mul_const kernel (:571), for Fr (FRK) and Fq (FQK).
 //
@@ -26,6 +26,7 @@ enum Op {
   FROM_MONT = 4,
   MONT_MUL_CONST = 5,
   MUL_SUB_MUL_CONST = 6,
+  MONT_SQR = 7,
 };
 
 __device__ __forceinline__ void load(uint32_t r[zk::NL], const uint32_t* x, long long i, long long n) {
@@ -59,6 +60,8 @@ __global__ void field_ew_kernel(const uint32_t* __restrict__ a, const uint32_t* 
       zk::to_mont<F>(r, x);
     } else if constexpr (OP == FROM_MONT) {
       zk::from_mont<F>(r, x);
+    } else if constexpr (OP == MONT_SQR) {
+      zk::mont_sqr<F>(r, x);
     } else if constexpr (OP == MONT_MUL_CONST) {
       zk::mont_mul<F>(r, x, k.v);
     } else {  // MUL_SUB_MUL_CONST: (a*b - c) * k
@@ -96,6 +99,7 @@ int dispatch(int op, const uint32_t* a, const uint32_t* b, const uint32_t* c,
     case FROM_MONT: return launch<F, FROM_MONT>(a, b, c, k, out, n, s);
     case MONT_MUL_CONST: return launch<F, MONT_MUL_CONST>(a, b, c, k, out, n, s);
     case MUL_SUB_MUL_CONST: return launch<F, MUL_SUB_MUL_CONST>(a, b, c, k, out, n, s);
+    case MONT_SQR: return launch<F, MONT_SQR>(a, b, c, k, out, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

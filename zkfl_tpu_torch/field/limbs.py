@@ -17,7 +17,7 @@ from functools import cached_property
 
 import numpy as np
 
-from zkfl_tpu.field.bn254 import FQ, FR
+from .bn254 import FQ, FR
 
 N_LIMBS = 8
 LIMB_BITS = 32

@@ -1,31 +1,30 @@
 """Round prover on TorchEngine (counterpart of zkfl_tpu/fl/prover.py).
 
-The three circuits pad to one ``PipelineProfile`` and their setups are built
-at its domain, as zkfl_tpu does for its JAX engine.  Single proofs and
-verification are inherited from the shared ``RoundProver``; the batched
-``prove_*_many`` go through the port's ``groth16_prove_many``, so the shared
-``run_round(config, prover=...)`` runs unchanged, with client batching.
+One trusted setup per circuit, shared by all clients and cached on disk
+(the reference skips compile/setup when .r1cs/.zkey exist,
+full_system_simulation.mjs:698-739).  The three circuits pad to one
+``PipelineProfile`` and their setups are built at its domain, so every
+proof of a round runs through one set of device shapes; cold setups run in
+parallel processes.  Batched proving goes through ``groth16_prove_many``
+(client-batch data parallelism); verification is the native pairing check.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from zkfl_tpu.fl.config import FLConfig
-from zkfl_tpu.fl.prover import RoundProver as SharedRoundProver
-from zkfl_tpu.r1cs.circuits import build_structure
-
 from ..groth16.device_prover import PipelineProfile
 from ..groth16.engine import TorchEngine
-from ..groth16.prover import groth16_prove_many
+from ..groth16.prover import groth16_prove, groth16_prove_many
 from ..groth16.setup import setup_cached_many
+from ..groth16.verifier import groth16_verify
+from ..r1cs.circuits import build_structure
+from .config import FLConfig
 
 
-class RoundProver(SharedRoundProver):
-    """Circuit structures + keys for one FL configuration on a TorchEngine.
-
-    Does not call the shared ``__init__``: its cold setups would import the
-    JAX fixed-base batches."""
+class RoundProver:
+    """The three circuit structures + proving/verifying keys of one FL
+    configuration, proved on a TorchEngine."""
 
     def __init__(self, config: FLConfig, engine: TorchEngine, cache_dir: Optional[str] = None):
         self.cfg = config
@@ -42,16 +41,32 @@ class RoundProver(SharedRoundProver):
         (self.balance_pk, self.balance_vk), (self.training_pk, self.training_vk), \
             (self.secagg_pk, self.secagg_vk) = keys
 
-    def _many(self, pk, cs, witnesses, mesh):
-        if mesh is not None:
-            raise NotImplementedError("sharding the client batch is not ported yet")
-        return groth16_prove_many(pk, cs, witnesses, self.engine)
+    # -- proving ----------------------------------------------------------
+    def prove_balance(self, witness):
+        return groth16_prove(self.balance_pk, self.balance_cs, witness, engine=self.engine)
 
-    def prove_balance_many(self, witnesses, mesh=None):
-        return self._many(self.balance_pk, self.balance_cs, witnesses, mesh)
+    def prove_training(self, witness):
+        return groth16_prove(self.training_pk, self.training_cs, witness, engine=self.engine)
 
-    def prove_training_many(self, witnesses, mesh=None):
-        return self._many(self.training_pk, self.training_cs, witnesses, mesh)
+    def prove_secagg(self, witness):
+        return groth16_prove(self.secagg_pk, self.secagg_cs, witness, engine=self.engine)
 
-    def prove_secagg_many(self, witnesses, mesh=None):
-        return self._many(self.secagg_pk, self.secagg_cs, witnesses, mesh)
+    # -- batched proving (client-batch data parallelism) ------------------
+    def prove_balance_many(self, witnesses):
+        return groth16_prove_many(self.balance_pk, self.balance_cs, witnesses, self.engine)
+
+    def prove_training_many(self, witnesses):
+        return groth16_prove_many(self.training_pk, self.training_cs, witnesses, self.engine)
+
+    def prove_secagg_many(self, witnesses):
+        return groth16_prove_many(self.secagg_pk, self.secagg_cs, witnesses, self.engine)
+
+    # -- verification (server side) --------------------------------------
+    def verify_balance(self, proof) -> bool:
+        return groth16_verify(self.balance_vk, proof)
+
+    def verify_training(self, proof) -> bool:
+        return groth16_verify(self.training_vk, proof)
+
+    def verify_secagg(self, proof) -> bool:
+        return groth16_verify(self.secagg_vk, proof)

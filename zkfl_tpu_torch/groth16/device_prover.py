@@ -5,8 +5,7 @@ Per batch of witnesses the host sends the packed standard-form witnesses and
 receives five curve points per proof; everything between — Montgomery
 conversion, sparse R1CS evaluation, the h(X) NTT pipeline, digit extraction
 and the batched Pippenger MSMs — runs on the tensors' device.  Proof assembly
-(blinding terms) stays on the host, shared with zkfl_tpu
-(groth16/prover.py _assemble_proof).
+(blinding terms) stays on the host (groth16/prover.py _assemble_proof).
 """
 
 from __future__ import annotations
@@ -17,15 +16,14 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from zkfl_tpu.field.bn254 import domain_size_for
-from zkfl_tpu.groth16.setup import ProvingKey
-from zkfl_tpu.r1cs.builder import ConstraintSystem
-
+from ..field.bn254 import domain_size_for
 from ..field.limbs import N_LIMBS
 from ..ops import msm
 from ..ops import point_kernels as pk_ops
 from ..ops.limb_kernels import FRK
 from ..ops.qap import DeviceMatrices, compute_h, matrix_evals
+from ..r1cs.builder import ConstraintSystem
+from .setup import ProvingKey
 
 
 @dataclass(frozen=True)

@@ -1,11 +1,13 @@
-"""TorchEngine: the prover compute engine of the port (counterpart of
-zkfl_tpu/groth16/engine.py JaxEngine).
+"""Prover compute engines: HostEngine (pure-Python oracle) and TorchEngine
+(counterparts of zkfl_tpu/groth16/engine.py HostEngine and JaxEngine).
 
-The production path is ``fused_msms``: the shared ``groth16_prove``
-(zkfl_tpu/groth16/prover.py) sees it and runs the whole witness -> h(X) ->
-five-MSM pipeline on ``device`` (groth16/device_prover.py), then assembles
-the proof on the host.  The per-primitive methods remain as standalone
-entry points for the stage-by-stage path.
+An engine supplies the four heavy primitives of ``groth16_prove``
+(groth16/prover.py): msm_g1 / msm_g2, matrix_evals and compute_h.
+TorchEngine's production path is ``fused_msms``: ``groth16_prove`` sees it
+and runs the whole witness -> h(X) -> five-MSM pipeline on ``device``
+(groth16/device_prover.py), then assembles the proof on the host.  Its
+per-primitive methods remain as standalone entry points for the
+stage-by-stage path.
 """
 
 from __future__ import annotations
@@ -18,6 +20,30 @@ import torch
 from ..ops.limb_kernels import FRK
 from ..ops.msm import msm_g1_host, msm_g2_host
 from ..ops.qap import DeviceMatrices, compute_h, matrix_evals
+from . import qap
+from .prover import msm_g2, pippenger_g1
+
+
+class HostEngine:
+    """Pure-Python primitives (oracle + micro-circuit fallback)."""
+
+    name = "host"
+
+    @staticmethod
+    def msm_g1(points, scalars):
+        return pippenger_g1(points, scalars)
+
+    @staticmethod
+    def msm_g2(points, scalars):
+        return msm_g2(points, scalars)
+
+    @staticmethod
+    def matrix_evals(constraints, witness, domain):
+        return qap.matrix_evals(constraints, witness, domain)
+
+    @staticmethod
+    def compute_h(a_evals, b_evals, c_evals):
+        return qap.compute_h_coeffs(a_evals, b_evals, c_evals)
 
 
 class TorchEngine:

@@ -31,7 +31,7 @@ from ..field.limbs import FQ_CONSTS, FR_CONSTS, N_LIMBS, FieldConsts, ints_to_li
 M16 = 0xFFFF
 _OPS = {
     "mont_mul": 0, "add": 1, "sub": 2, "to_mont": 3, "from_mont": 4,
-    "mont_mul_const": 5, "mul_sub_mul_const": 6,
+    "mont_mul_const": 5, "mul_sub_mul_const": 6, "mont_sqr": 7,
 }
 
 
@@ -117,6 +117,9 @@ class PlainField:
 
     def mont_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.mont_reduce(_carry(_mul_cols(a, b, 32)))
+
+    def mont_sqr(self, a: torch.Tensor) -> torch.Tensor:
+        return self.mont_mul(a, a)
 
     def mont_mul_int(self, a: torch.Tensor, k: int) -> torch.Tensor:
         return self.mont_reduce(_carry(_mul_cols(a, _const16(k, a), 32)))
@@ -226,6 +229,9 @@ class TorchField:
     def mont_mul_plain(self, a, b):
         return join16(self.plain.mont_mul(split16(a), split16(b)))
 
+    def mont_sqr_plain(self, a):
+        return join16(self.plain.mont_sqr(split16(a)))
+
     def add_plain(self, a, b):
         return join16(self.plain.add(split16(a), split16(b)))
 
@@ -265,6 +271,9 @@ class TorchField:
     # -- public ops (kernel for CUDA tensors, plain version for CPU) --------
     def mont_mul(self, a, b):
         return self.mont_mul_plain(a, b) if on_cpu(a, b) else self._ew("mont_mul", a, b)
+
+    def mont_sqr(self, a):
+        return self.mont_sqr_plain(a) if on_cpu(a) else self._ew("mont_sqr", a)
 
     def add(self, a, b):
         return self.add_plain(a, b) if on_cpu(a, b) else self._ew("add", a, b)

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from zkfl_tpu.field.bn254 import FR
+from ..field.bn254 import FR
 
 from . import point_kernels as pk
 from .limb_kernels import FRK

@@ -17,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zkfl_tpu.field.bn254 import FQ
-from zkfl_tpu.field.curve import TWIST_B
+from ..field.bn254 import FQ
+from ..field.curve import TWIST_B
 
 from .. import backend
 from ..field.limbs import N_LIMBS, limbs_to_ints
@@ -292,7 +292,7 @@ def g1_from_device(pt) -> tuple | None:
 
 def g2_from_device(pt):
     """[3, 2, 8] (or [3, 2, 8, 1]) projective -> affine (FQ2, FQ2) or None."""
-    from zkfl_tpu.field.tower import FQ2
+    from ..field.tower import FQ2
 
     arr = pt.detach().cpu().numpy() if isinstance(pt, torch.Tensor) else np.asarray(pt)
     c = _fq_ints(arr.reshape(3, 2, N_LIMBS, 1))

@@ -15,7 +15,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from zkfl_tpu.field.bn254 import FR, FR_GENERATOR, fr_inv, fr_nth_root
+from ..field.bn254 import FR, FR_GENERATOR, fr_inv, fr_nth_root
 
 from ..field.limbs import N_LIMBS
 from .limb_kernels import FRK
