@@ -6,17 +6,23 @@
 Needs one CUDA card, nvcc, g++ and this checkout; imports nothing of JAX and
 nothing of zkfl_tpu.  Phases (any failure raises and exits non-zero):
   1. probe: card name, power limit and SM clock, CUDA / nvcc / Triton versions;
-  2. build the five CUDA kernels (K1-K5) from zkfl_tpu_torch/csrc;
+  2. build the six CUDA kernels (K1-K6) from zkfl_tpu_torch/csrc; ptxas's
+     registers and spills per entry, SASS instructions per Fq product of
+     the point kernels (cuobjdump);
   3. every kernel op against its plain torch version on the same random
      canonical inputs (exact equality): the field ops at 2^18 lanes, the G1
-     ops at 2^17, the Poseidon permutation at t = 2, 3, 6, 17 on 2^12
-     states; the card time of each (over input sets larger than the L2)
-     and the wall time per call;
+     ops at 2^17, the G2 ops at 3 x 2^14 (the G2 MSM's widest launch), both
+     doublings also 8 at a time, with identity, P + P, P + (-P) and
+     projective representatives whose coordinates have the limbs of p - 1
+     checked against the host curve too, the Poseidon permutation at
+     t = 2, 3, 6, 17 on 2^12 states; the card time of each (over input sets
+     larger than the L2) and the wall time per call;
   4. MICRO_CONFIG balance proof on TorchEngine == HostEngine's, bit for
      bit, under deterministic blinding;
   5. one REFERENCE_CONFIG FL round through the port's RoundProver and
      run_round: 3 clients batched, 9 proofs verified by the native
-     verifier, masks cancel; every kernel of the path launched;
+     verifier, masks cancel; every kernel of the path launched, and no
+     fq.add / fq.sub / fq.mont_mul; each G1 and G2 MSM's wall time;
   6. a client's dataset commitment on the card: 2^20 samples of 16 features
      and a label, VectorHash per sample and a depth-20 Poseidon Merkle tree;
      each K5 launch of it timed by CUDA events in that run, and 2^12 of its
@@ -27,15 +33,18 @@ fr.poseidon's row in the kernel report is phase 6's launches.
 The last two lines are the kernel report and the device line, both JSON.
 """
 
+import collections
 import json
 import os
-import re
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIELD_LANES = 1 << 18    # main-path lane counts: matrix terms, NTT stages
 POINT_LANES = 1 << 17    # the G1 MSM's serial-scan launches are ~2^17.6 lanes
+G2_LANES = 3 << 14       # the G2 MSM's serial-scan launches: 3 clients x 32 windows x 512
+LADDER_LANES = {"g1": 12, "g2": 3}  # the Horner ladder's accumulators: 3 clients x 4 / x 1
+WBITS = 8                # doublings per window of the ladder
 POSEIDON_LANES = 1 << 12
 POSEIDON_WIDTHS = (2, 3, 6, 17)
 COMMIT_DEPTH = 20        # 2^20 samples: a realistic client's dataset
@@ -49,6 +58,8 @@ SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12
 SMS, INT32_LANES = 132, 64
 MONT = 2 * 8 * 8 + 8     # 32-bit multiply-adds of one CIOS Montgomery product
+SQR = 8 * 9 // 2 + 8 * 8 + 8  # of a Montgomery squaring (each cross product once)
+REDC = 8 * 8 + 8         # of a Montgomery reduction alone (a product by 1)
 SLEEP_CYCLES = 10**8     # about 50 ms of the card's clock
 ROTATE = 8               # input sets per timed op: >= 112 MB between reuses
 
@@ -131,27 +142,43 @@ def rand_elems(gen, n, dev, p):
     return x
 
 
-def poseidon_mont_muls(t: int) -> int:
-    """Montgomery products of one width-t permutation: x^5 on t lanes in the
-    R_F full rounds and on one lane in the R_P partial ones, a t x t mix in
-    every round."""
+def poseidon_madds(t: int) -> int:
+    """32-bit multiply-adds of one width-t permutation: x^5 (two squarings
+    and a product) on t lanes in the R_F full rounds and on one lane in the
+    R_P partial ones, a t x t mix of products in every round."""
     from zkfl_tpu_torch.poseidon.grain import R_F, partial_rounds
 
-    return R_F * (3 * t + t * t) + partial_rounds(t) * (3 + t * t)
+    sbox = 2 * SQR + MONT
+    return R_F * (t * sbox + t * t * MONT) + partial_rounds(t) * (sbox + t * t * MONT)
 
 
-# op -> (32-bit multiply-adds, bytes read + written) per lane
+# Point op -> (32-bit multiply-adds, bytes read + written) per point: the
+# fewest of a correct design of RCB15 alg. 7 (add: 12 products and 2 by b3)
+# and 9 (double: 6 products, 2 squarings and 1 by b3).  G1: b3 = 9 takes
+# additions.  G2: an Fq2 product is 3 Fq products (Karatsuba), a squaring 2,
+# a product by b3 = (9/82)(9 - u) 2.
+POINT_COST = {"g1.padd": (12 * MONT, 288), "g1.pdbl": (6 * MONT + 2 * SQR, 192),
+              "g2.padd": ((12 * 3 + 2 * 2) * MONT, 576),
+              "g2.pdbl": ((6 * 3 + 2 * 2 + 2) * MONT, 384)}
+
+
+# op ("<field>.<op>", then " t=<width>" or " times=<doublings>") ->
+# (32-bit multiply-adds, bytes read + written) per lane
 def op_cost(name: str):
-    op = name.split(".", 1)[1]
-    if name.startswith("fr.poseidon"):
-        t = int(name.split("t=")[1])
-        return poseidon_mont_muls(t) * MONT, 2 * t * 32
+    base, _, arg = name.partition(" ")
+    if base == "fr.poseidon":
+        t = int(arg.split("t=")[1])
+        return poseidon_madds(t), 2 * t * 32
+    if base in POINT_COST:
+        madds, nbytes = POINT_COST[base]
+        times = int(arg.split("times=")[1]) if arg else 1
+        return madds * times, nbytes
     return {
-        "mont_mul": (MONT, 96), "mont_sqr": (MONT, 64), "add": (0, 96), "sub": (0, 96),
-        "to_mont": (MONT, 64), "from_mont": (MONT, 64), "mont_mul_const": (MONT, 64),
+        "mont_mul": (MONT, 96), "mont_sqr": (SQR, 64), "add": (0, 96), "sub": (0, 96),
+        "to_mont": (MONT, 64), "from_mont": (REDC, 64), "mont_mul_const": (MONT, 64),
         "mul_sub_mul_const": (2 * MONT, 128), "butterfly": (MONT, 160),
-        "normalize_raw": (2 * MONT, 96), "padd": (14 * MONT, 288), "pdbl": (9 * MONT, 192),
-    }[op]
+        "normalize_raw": (REDC + MONT, 96),
+    }[base.split(".", 1)[1]]
 
 
 def bound(name: str, lanes: int, sm_mhz: float):
@@ -164,13 +191,144 @@ def bound(name: str, lanes: int, sm_mhz: float):
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def extreme_value() -> int:
+    """The standard-form Fq value whose Montgomery representative is p - 1."""
+    from zkfl_tpu_torch.field.bn254 import FQ
+    from zkfl_tpu_torch.ops.limb_kernels import FQK
+
+    return (-pow(FQK.mont_r, -1, FQ)) % FQ
+
+
+def g1_extreme(pt, coord):
+    """Standard-form (X, Y, Z) of affine G1 ``pt``, scaled so that coordinate
+    ``coord`` has the Montgomery representative p - 1."""
+    from zkfl_tpu_torch.field.bn254 import FQ
+
+    xyz = (pt[0], pt[1], 1)
+    lam = extreme_value() * pow(xyz[coord], -1, FQ) % FQ
+    return tuple(v * lam % FQ for v in xyz)
+
+
+def g2_extreme(pt, coord, comp):
+    """Standard-form ((x0, x1), (y0, y1), (z0, z1)) of affine G2 ``pt``
+    scaled by lambda in Fq2 (mu, or mu u where that coefficient is 0) so
+    that coefficient ``comp`` of coordinate ``coord`` has the representative
+    p - 1."""
+    from zkfl_tpu_torch.field.bn254 import FQ
+
+    xyz = (tuple(pt[0].coeffs), tuple(pt[1].coeffs), (1, 0))
+    c = xyz[coord]
+    uc = c if c[comp] else ((-c[1]) % FQ, c[0])  # u c = -c1 + c0 u
+    mu = extreme_value() * pow(uc[comp], -1, FQ) % FQ
+    lam = (mu, 0) if c[comp] else (0, mu)
+    return tuple(((lam[0] * v[0] - lam[1] * v[1]) % FQ, (lam[0] * v[1] + lam[1] * v[0]) % FQ)
+                 for v in xyz)
+
+
+def g1_limbs(projs, fq):
+    """Standard-form projective G1 points -> int32 [3, 8, n] Montgomery."""
+    import numpy as np
+
+    return np.stack([fq.pack([pr[i] for pr in projs]) for i in range(3)])
+
+
+def g2_limbs(projs, fq):
+    """Standard-form projective G2 points -> int32 [3, 2, 8, n] Montgomery."""
+    import numpy as np
+
+    return np.stack([np.stack([fq.pack([pr[i][j] for pr in projs]) for j in range(2)])
+                     for i in range(3)])
+
+
+def g2_key(pts):
+    return [None if q is None else tuple(tuple(c.coeffs) for c in q) for q in pts]
+
+
+def edge_lanes(P, Q, inf, fq):
+    """P + O, O + Q, P + P, P + (-P), O + O in lanes 0-4 of a point check."""
+    import torch
+
+    P[..., 0], Q[..., 1] = inf, inf            # P + O, O + Q
+    Q[..., 2] = P[..., 2]                      # P + P
+    Q[..., 3] = P[..., 3]                      # P + (-P): negate Y
+    y = P[1, ..., 3:4].movedim(-2, 0)         # limbs first: [8, (2,) 1]
+    Q[1, ..., 3] = fq.sub_plain(torch.zeros_like(y), y).movedim(0, -2)[..., 0]
+    P[..., 4], Q[..., 4] = inf, inf            # O + O
+
+
+def ladder(rows, group, pdbl, P):
+    """Card time of one launch of the Horner ladder's doubling: WBITS
+    doublings of the group's accumulators (LADDER_LANES), into the row of
+    its doubling op."""
+    x = P[..., : LADDER_LANES[group]].contiguous()
+    row = rows[f"{group}.pdbl"]
+    row["ladder_lanes"] = LADDER_LANES[group]
+    row["ladder_ms"] = kernel_ms(lambda a: pdbl(a, WBITS), [(x,)], 16)
+    log(f"  {group}.pdbl times={WBITS} at the ladder's {LADDER_LANES[group]} lanes: "
+        f"card ms {row['ladder_ms']:.4f}")
+
+
+def point_checks(check, rows, dev, gen, group):
+    """Phase 3's point ops of one group ("g1" at POINT_LANES, "g2" at
+    G2_LANES), each against its plain version: add, double, WBITS doublings
+    in one launch.  The first input set holds random projective points
+    (sums of two affine points, Z != 1), the edge lanes 0-4 and then
+    representatives whose coordinates (G2: each coefficient) have the limbs
+    of p - 1, first in P, then in Q; those lanes go to the host curve
+    oracle too.  The timing's other sets are random affine points."""
+    import torch
+
+    from zkfl_tpu_torch.field import curve
+    from zkfl_tpu_torch.ops import point_kernels as pk
+    from zkfl_tpu_torch.ops.limb_kernels import FQK
+
+    if group == "g1":
+        lanes, mul, add, key = POINT_LANES, curve.g1_mul, curve.g1_add, list
+        base = [mul(curve.G1_GEN, 1000003 * i + 7) for i in range(64)]
+        to_dev, from_dev, inf = pk.g1_to_device, pk.g1_from_device, pk.inf_point
+        padd, padd_plain, pdbl, pdbl_plain = pk.padd, pk.padd_plain, pk.pdbl, pk.pdbl_plain
+        ext = g1_limbs([g1_extreme(base[k], k % 3) for k in range(6)], FQK)
+    else:
+        lanes, mul, add, key = G2_LANES, curve.g2_mul_jac, curve.g2_add, g2_key
+        base = [mul(curve.g2_generator(), 1000003 * i + 7) for i in range(64)]
+        to_dev, from_dev, inf = pk.g2_to_device, pk.g2_from_device, pk.inf_point_g2
+        padd, padd_plain = pk.padd_g2, pk.padd_g2_plain
+        pdbl, pdbl_plain = pk.pdbl_g2, pk.pdbl_g2_plain
+        ext = g2_limbs([g2_extreme(base[k], k // 2 % 3, k % 2) for k in range(12)], FQK)
+    bdev = to_dev(base, dev)
+    idx = torch.randint(0, 64, (4, lanes), device=dev, generator=gen)
+    P = padd_plain(bdev[..., idx[0]], bdev[..., idx[1]])
+    Q = padd_plain(bdev[..., idx[2]], bdev[..., idx[3]])
+    edge_lanes(P, Q, inf((1,), dev)[..., 0], FQK)
+    k = ext.shape[-1] // 2
+    P[..., 5:5 + k] = torch.from_numpy(ext[..., :k]).to(dev)
+    Q[..., 5 + k:5 + 2 * k] = torch.from_numpy(ext[..., k:]).to(dev)
+    pairs = [(P, Q)] + [
+        tuple(bdev[..., torch.randint(0, 64, (lanes,), device=dev, generator=gen)]
+              for _ in range(2))
+        for _ in range(ROTATE - 1)]
+    singles = [(x,) for x, _ in pairs]
+    n_host = 5 + 2 * k
+    host_p = [from_dev(P[..., i]) for i in range(n_host)]
+    host_q = [from_dev(Q[..., i]) for i in range(n_host)]
+
+    def run(name, kernel_fn, plain_fn, sets, reps, want):
+        out = check(name, kernel_fn, plain_fn, sets, lanes, reps=reps)
+        if key([from_dev(out[..., i]) for i in range(n_host)]) != key(want):
+            raise AssertionError(f"{name}: edge lanes disagree with the host curve oracle")
+
+    run(f"{group}.padd", padd, padd_plain, pairs, 16, [add(x, y) for x, y in zip(host_p, host_q)])
+    run(f"{group}.pdbl", pdbl, pdbl_plain, singles, 16, [add(x, x) for x in host_p])
+    run(f"{group}.pdbl times={WBITS}", lambda x: pdbl(x, WBITS), lambda x: pdbl_plain(x, WBITS),
+        singles, 8, [mul(x, 1 << WBITS) if x else None for x in host_p])
+    ladder(rows, group, pdbl, P)
+
+
 def phase_kernels(dev, backend, sm_mhz):
     """Phase 3: each kernel op vs its plain version; returns report rows."""
     import torch
 
-    from zkfl_tpu_torch.field.curve import G1_GEN, g1_add, g1_mul
     from zkfl_tpu_torch.field.limbs import ints_to_limbs
-    from zkfl_tpu_torch.ops import point_kernels as pk
     from zkfl_tpu_torch.ops.limb_kernels import FQK, FRK
     from zkfl_tpu_torch.ops.poseidon import PoseidonKernel
 
@@ -192,7 +350,7 @@ def phase_kernels(dev, backend, sm_mhz):
             raise AssertionError(f"{name}: kernel disagrees with its plain version (max |diff| {err})")
         if launched != 1:
             raise AssertionError(f"{name}: {launched} launches of {counter}, expected 1")
-        b_ms, b_by = bound(name.replace(" ", ""), lanes, sm_mhz)
+        b_ms, b_by = bound(name, lanes, sm_mhz)
         row = rows[name] = {"max_abs_err": err, "ms": kernel_ms(kernel_fn, arg_sets, reps),
                             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                             "check_launches": launched}
@@ -242,33 +400,8 @@ def phase_kernels(dev, backend, sm_mhz):
         check(f"fr.poseidon t={t}", kern.permute, kern.permute_plain, [(s,)], POSEIDON_LANES,
               reps=5)
 
-    # G1: random projective points (sums of two affine points, Z != 1), then
-    # the identity, P + P and P + (-P) in the first lanes; the timing's other
-    # sets are random affine points.
-    base = [g1_mul(G1_GEN, 1000003 * i + 7) for i in range(64)]
-    bdev = pk.g1_to_device(base, dev)
-    idx = torch.randint(0, 64, (4, POINT_LANES), device=dev, generator=gen)
-    P = pk.padd_plain(bdev[..., idx[0]], bdev[..., idx[1]])
-    Q = pk.padd_plain(bdev[..., idx[2]], bdev[..., idx[3]])
-    inf = pk.inf_point((1,), dev)[..., 0]
-    P[..., 0], Q[..., 1] = inf, inf            # P + O, O + Q
-    Q[..., 2] = P[..., 2]                      # P + P
-    Q[..., 3] = P[..., 3]                      # P + (-P): negate Y
-    Q[1, :, 3] = FQK.sub(torch.zeros_like(P[1, :, 3:4]), P[1, :, 3:4])[:, 0]
-    P[..., 4], Q[..., 4] = inf, inf            # O + O
-    pairs = [(P, Q)] + [
-        tuple(bdev[..., torch.randint(0, 64, (POINT_LANES,), device=dev, generator=gen)]
-              for _ in range(2))
-        for _ in range(ROTATE - 1)]
-    out = check("g1.padd", pk.padd, pk.padd_plain, pairs, POINT_LANES, reps=16)
-    host_p = [pk.g1_from_device(P[..., i]) for i in range(6)]
-    host_q = [pk.g1_from_device(Q[..., i]) for i in range(6)]
-    if [pk.g1_from_device(out[..., i]) for i in range(6)] != [g1_add(x, y) for x, y in zip(host_p, host_q)]:
-        raise AssertionError("g1.padd: edge lanes disagree with the host curve oracle")
-    out = check("g1.pdbl", pk.pdbl, pk.pdbl_plain, [(p,) for p, _ in pairs], POINT_LANES,
-                reps=16)
-    if [pk.g1_from_device(out[..., i]) for i in range(6)] != [g1_add(x, x) for x in host_p]:
-        raise AssertionError("g1.pdbl: edge lanes disagree with the host curve oracle")
+    for group in ("g1", "g2"):
+        point_checks(check, rows, dev, gen, group)
     return rows
 
 
@@ -311,6 +444,41 @@ def phase_micro_parity(dev, artifacts):
         f"host {t2 - t1:.2f} s; proofs equal bit for bit and verify")
 
 
+class MSMTap:
+    """While active, wraps msm._msm_impl (each prove's batched G1 MSM of the
+    four families and its G2 MSM): the card synchronised before and after
+    each call, its host wall time, and the point-kernel launches it made."""
+
+    def __init__(self, backend):
+        from zkfl_tpu_torch.ops import msm
+
+        self.backend, self.msm = backend, msm
+        self.calls = []                        # (group, scalar rows, lanes, ms, launches)
+
+    def __enter__(self):
+        import torch
+
+        impl = self.impl = self.msm._msm_impl
+
+        def tapped(points, scalars, ops, *args, **kwargs):
+            torch.cuda.synchronize()
+            before = collections.Counter(self.backend.LAUNCHES)
+            t0 = time.perf_counter()
+            out = impl(points, scalars, ops, *args, **kwargs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            made = collections.Counter(self.backend.LAUNCHES) - before
+            group = "g2" if ops is self.msm._G2Ops else "g1"
+            self.calls.append((group, scalars.shape[0], scalars.shape[-1], ms, dict(made)))
+            return out
+
+        self.msm._msm_impl = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.msm._msm_impl = self.impl
+
+
 def phase_round(dev, artifacts, backend):
     """Phase 5: one REFERENCE_CONFIG round on the port; returns launch counts."""
     import torch
@@ -332,9 +500,23 @@ def phase_round(dev, artifacts, backend):
     backend.LAUNCHES.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    server, timings = run_round(cfg, prover=prover, verbose=False)
+    with MSMTap(backend) as tap:
+        server, timings = run_round(cfg, prover=prover, verbose=False)
     torch.cuda.synchronize()
     launches = dict(backend.LAUNCHES)
+
+    # The proofs run circuit by circuit, one batched prove each: a G1 then
+    # a G2 MSM per circuit.
+    circuits = ("balance", "training", "secagg")
+    if [c[0] for c in tap.calls] != ["g1", "g2"] * len(circuits):
+        raise AssertionError(f"MSM calls {[c[:3] for c in tap.calls]}, expected G1, G2 per circuit")
+    for k, (group, rows, lanes, ms, made) in enumerate(tap.calls):
+        log(f"  {circuits[k // 2]:8s} {group} MSM, {rows} scalar rows x {lanes} points: "
+            f"{ms:9.3f} ms wall; launches {made}")
+    unfused = {op: launches.get(op, 0) for op in ("fq.add", "fq.sub", "fq.mont_mul")}
+    if any(unfused.values()) or not launches.get("g2.padd") or not launches.get("g2.pdbl"):
+        raise AssertionError(f"the G2 MSM did not go through K6 alone: {unfused}, "
+                             f"g2.padd {launches.get('g2.padd')}, g2.pdbl {launches.get('g2.pdbl')}")
 
     for name in ("setup", "datasets", "commitments", "balance_proofs", "training_proofs",
                  "secagg_proofs", "aggregate", "total"):
@@ -546,10 +728,13 @@ KERNELS = {
     "fq.sub": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:367"),
     "g1.padd": ("g1_point.cu", "zkfl_tpu/ops/point_kernels.py:68"),
     "g1.pdbl": ("g1_point.cu", "zkfl_tpu/ops/point_kernels.py:101"),
+    "g2.padd": ("g2_point.cu", "zkfl_tpu/ops/point_kernels.py:284"),
+    "g2.pdbl": ("g2_point.cu", "zkfl_tpu/ops/point_kernels.py:321"),
 }
-# No path of either package squares a field element, so these two report the
-# launches of their check in phase 3.
-CHECK_ONLY = ("fr.mont_sqr", "fq.mont_sqr")
+# These report the launches of their check in phase 3: no path of either
+# package squares a field element, and since K6 the round launches no Fq
+# add, sub or product (phase 5 asserts that the round made none).
+CHECK_ONLY = ("fr.mont_sqr", "fq.mont_sqr", "fq.add", "fq.sub", "fq.mont_mul")
 
 
 def report_row(name, rows, launches):
@@ -562,8 +747,9 @@ def report_row(name, rows, launches):
            "launches": launches[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
            "library_ms": None}
-    if "parts" in row:
-        out["parts"] = row["parts"]
+    for extra in ("parts", "ladder_lanes", "ladder_ms"):
+        if extra in row:
+            out[extra] = row[extra]
     return out
 
 
@@ -574,7 +760,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from zkfl_tpu_torch import backend
+    from zkfl_tpu_torch import backend, kernel_stats
 
     t_start = time.time()
     dev = backend.device("cuda:0")
@@ -597,24 +783,17 @@ def main() -> int:
     lib_path = backend.build()
     backend.lib()
     log(f"  {lib_path} in {time.time() - t0:.1f} s")
-    entry, spills, nvcc_s = None, "", {}
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
+    nvcc_s = {}
+    build_log = (lib_path.parent / "build.log").read_text()
+    for line in build_log.splitlines():
         if line.startswith("# nvcc "):
             what, secs = line[len("# nvcc "):].split(": ")
             nvcc_s[what] = float(secs.split()[0])
-        elif "Compiling entry function" in line:
-            mangled = line.split("'")[1]
-            entry = next((k for k in ("field_ew", "butterfly", "normalize_raw", "g1_padd", "g1_pdbl",
-                                      "poseidon") if f"{k}_kernel" in mangled), mangled)
-            m = re.search(r"IN2zk2(F[rq])ELi(\d)E", mangled)
-            entry += f"<{m.group(1)}, op {m.group(2)}>" if m else ""
-            m = re.search(r"poseidon_kernelILi(\d+)E", mangled)
-            entry += f"<t={m.group(1)}>" if m else ""
-        elif "spill stores" in line:
-            spills = line.strip()
-        elif "Used" in line and "registers" in line and entry:
-            regs = line.split("Used")[1].split(",")[0].strip()
-            log(f"  ptxas {entry}: {regs}; {spills}")
+    for entry, regs, spills in kernel_stats.ptxas_report(build_log):
+        log(f"  ptxas {entry}: {regs} registers ({kernel_stats.blocks_per_sm(regs)} blocks of 128 "
+            f"threads fit an SM); {spills}")
+    for line in kernel_stats.point_sass_lines(lib_path):
+        log(f"  sass {line}")
     log(f"  nvcc wall time per process: {nvcc_s}; the sources' compiles add up to "
         f"{sum(v for k, v in nvcc_s.items() if k != 'link'):.1f} s")
 

@@ -4,7 +4,12 @@ integers.
 
 The kernels themselves run only on a card (chip_smoke.py compares them with
 their plain torch versions there); their per-element functions are
-__host__ __device__, so the exact code they inline is checked here.
+__host__ __device__, so the exact code they inline is checked here.  The
+point formulas (rcb_padd / rcb_pdbl) run here over the host policies: Fq
+for G1, Fq2Pair for G2, which computes each coefficient with K6's per-thread
+fq2_mul_half; only K6's exchange between the two threads of a point
+(__shfl_xor_sync) and the card's carry-chain product (mont_mul_cc) are
+left to the card.
 """
 
 import shutil
@@ -15,7 +20,8 @@ import numpy as np
 import pytest
 
 from zkfl_tpu.field.bn254 import FQ, FR
-from zkfl_tpu.field.curve import G1_GEN, g1_add, g1_mul, g1_neg
+from zkfl_tpu.field.curve import G1_GEN, TWIST_B, g1_add, g1_mul, g1_neg, g2_add, g2_generator, g2_mul_jac, g2_neg
+from zkfl_tpu.field.tower import FQ2
 from zkfl_tpu_torch.field.limbs import FQ_CONSTS, FR_CONSTS, R, ints_to_limbs, limbs_to_ints
 
 CSRC = Path(__file__).resolve().parent.parent / "zkfl_tpu_torch" / "csrc"
@@ -55,6 +61,22 @@ void g1_op(const char* op, const uint32_t* in, uint32_t* out) {
   memcpy(out, &r, sizeof r);
 }
 
+void fq2_op(const char* op, const uint32_t* in, uint32_t* out) {
+  Fq2Pair::El a, b, r;
+  memcpy(&a, in, sizeof a);
+  if (!strcmp(op, "mul")) { memcpy(&b, in + 2 * NL, sizeof b); Fq2Pair{}.mul(r, a, b); }
+  else Fq2Pair{}.mul_b3(r, a);
+  memcpy(out, &r, sizeof r);
+}
+
+void g2_op(const char* op, const uint32_t* in, uint32_t* out) {
+  G2 p, q, r;
+  memcpy(&p, in, sizeof p);
+  if (!strcmp(op, "padd")) { memcpy(&q, in + 6 * NL, sizeof q); g2_padd(r, p, q); }
+  else g2_pdbl(r, p);
+  memcpy(out, &r, sizeof r);
+}
+
 // consts: the round constants, then the MDS matrix (Montgomery elements).
 template <int T>
 void poseidon_op(const uint32_t* consts, const uint32_t* in, uint32_t* out) {
@@ -85,6 +107,8 @@ int main(int argc, char** argv) {
     if (!strcmp(field, "fr")) field_op<Fr>(op, in.data(), out.data());
     else if (!strcmp(field, "fq")) field_op<Fq>(op, in.data(), out.data());
     else if (!strcmp(field, "poseidon")) poseidon_t(atoi(op), consts.data(), in.data(), out.data());
+    else if (!strcmp(field, "fq2")) fq2_op(op, in.data(), out.data());
+    else if (!strcmp(field, "g2")) g2_op(op, in.data(), out.data());
     else g1_op(op, in.data(), out.data());
     fwrite(out.data(), 4, out_words, stdout);
   }
@@ -210,6 +234,116 @@ def test_g1_padd_pdbl(harness):
     assert _g1_affine(out) == [g1_add(a, b) for a, b in zip(ps, qs)]
     out = harness("g1", "pdbl", _g1_words(pts + [None]), 24)
     assert _g1_affine(out) == [g1_add(a, a) for a in pts + [None]]
+
+
+def test_g1_extreme_representatives(harness):
+    """Projective representatives whose X, Y or Z has the Montgomery limbs
+    of p - 1 (the multiply's extreme inputs)."""
+    rq = FQ_CONSTS.mont_r
+    ext = (-pow(rq, -1, FQ)) % FQ  # Montgomery representative p - 1
+    pts = [g1_mul(G1_GEN, 5 + 13 * i) for i in range(6)]
+    projs = []
+    for i, (x, y) in enumerate(pts):
+        lam = ext * pow((x, y, 1)[i % 3], -1, FQ) % FQ
+        projs.append(tuple(v * lam % FQ for v in (x, y, 1)))
+    words = np.concatenate([_words([pr[c] * rq % FQ for pr in projs]) for c in range(3)], axis=1)
+    assert all(_ints(words[i : i + 1, 8 * (i % 3) : 8 * (i % 3) + 8]) == [FQ - 1] for i in range(6))
+    q = np.roll(words, 1, axis=0)
+    out = harness("g1", "padd", np.concatenate([words, q], axis=1), 24)
+    assert _g1_affine(out) == [g1_add(a, b) for a, b in zip(pts, pts[-1:] + pts[:-1])]
+    assert _g1_affine(harness("g1", "pdbl", words, 24)) == [g1_add(a, a) for a in pts]
+
+
+# ---------------------------------------------------------------------------
+# Fq2 and G2 (Fq2Pair over fq2_mul_half)
+# ---------------------------------------------------------------------------
+
+
+def _fq2_words(vals):
+    """(c0, c1) pairs of Montgomery ints -> uint32 [n, 16]."""
+    return np.concatenate([_words([v[0] for v in vals]), _words([v[1] for v in vals])], axis=1)
+
+
+def _fq2_ints(words):
+    return list(zip(_ints(words[:, :8]), _ints(words[:, 8:16])))
+
+
+def test_fq2_products_match_integers(harness):
+    p, rinv = FQ, pow(FQ_CONSTS.mont_r, -1, FQ)
+    a = list(zip(_rand(p, 30), reversed(_rand(p, 30))))
+    b = list(zip(reversed(_rand(p, 30)), _rand(p, 30)))
+    a += [(0, 0), (p - 1, p - 1), (1, p - 1)]
+    b += [(p - 1, p - 1), (p - 1, p - 1), (p - 1, 1)]
+
+    def mul(x, y):
+        return ((x[0] * y[0] - x[1] * y[1]) * rinv % p, (x[0] * y[1] + x[1] * y[0]) * rinv % p)
+
+    out = harness("fq2", "mul", np.concatenate([_fq2_words(a), _fq2_words(b)], axis=1), 16)
+    assert _fq2_ints(out) == [mul(x, y) for x, y in zip(a, b)]
+    b3 = tuple(3 * c % p * FQ_CONSTS.mont_r % p for c in TWIST_B.coeffs)
+    assert _fq2_ints(harness("fq2", "mul_b3", _fq2_words(a), 16)) == [mul(x, b3) for x in a]
+
+
+def _g2_words(projs):
+    """Standard-form projective ((x0, x1), (y0, y1), (z0, z1)) -> uint32
+    [n, 48] Montgomery X, Y, Z, each c0 then c1."""
+    rq, projs = FQ_CONSTS.mont_r, list(projs)
+    return np.concatenate([_fq2_words([tuple(c * rq % FQ for c in pr[k]) for pr in projs])
+                           for k in range(3)], axis=1)
+
+
+def _g2_proj(pt):
+    if pt is None:
+        return ((0, 0), (1, 0), (0, 0))
+    return (tuple(pt[0].coeffs), tuple(pt[1].coeffs), (1, 0))
+
+
+def _g2_affine(words):
+    rinv = pow(FQ_CONSTS.mont_r, -1, FQ)
+    out = []
+    for row in words:
+        c = [v * rinv % FQ for v in _ints(row.reshape(6, 8))]
+        x, y, z = (FQ2(c[2 * k : 2 * k + 2]) for k in range(3))
+        out.append(None if z.is_zero() else (x / z, y / z))
+    return out
+
+
+def _g2_key(pts):
+    return [None if q is None else tuple(tuple(c.coeffs) for c in q) for q in pts]
+
+
+def test_g2_padd_pdbl(harness):
+    """RCB15 over Fq2Pair: random points, O+Q, P+O, P+P, P+(-P), O+O, and
+    representatives scaled (by a real lambda, or lambda u where the target
+    coefficient is 0) so that each coefficient of X, Y and Z in turn has the
+    Montgomery representative p - 1."""
+    g = g2_generator()
+    pts = [g2_mul_jac(g, 7 + 19 * i) for i in range(8)]
+    ps = pts[:2] + [None, pts[2], pts[3], pts[4], None]
+    qs = pts[5:7] + [pts[7], None, pts[3], g2_neg(pts[4]), None]
+    out = harness("g2", "padd", np.concatenate([_g2_words(map(_g2_proj, ps)),
+                                                _g2_words(map(_g2_proj, qs))], axis=1), 48)
+    assert _g2_key(_g2_affine(out)) == _g2_key(g2_add(a, b) for a, b in zip(ps, qs))
+    out = harness("g2", "pdbl", _g2_words(map(_g2_proj, ps)), 48)
+    assert _g2_key(_g2_affine(out)) == _g2_key(g2_add(a, a) for a in ps)
+
+    ext = (-pow(FQ_CONSTS.mont_r, -1, FQ)) % FQ
+    projs = []
+    for i, pt in enumerate(pts[:6]):
+        xyz = _g2_proj(pt)
+        c, comp = xyz[i // 2], i % 2
+        uc = c if c[comp] else ((-c[1]) % FQ, c[0])
+        mu = ext * pow(uc[comp], -1, FQ) % FQ
+        lam = (mu, 0) if c[comp] else (0, mu)
+        projs.append(tuple(((lam[0] * v[0] - lam[1] * v[1]) % FQ, (lam[0] * v[1] + lam[1] * v[0]) % FQ)
+                           for v in xyz))
+    words = _g2_words(projs)
+    assert [_ints(words[i : i + 1, 8 * i : 8 * i + 8]) for i in range(6)] == [[FQ - 1]] * 6
+    q = np.roll(words, 1, axis=0)
+    out = harness("g2", "padd", np.concatenate([words, q], axis=1), 48)
+    base = pts[:6]
+    assert _g2_key(_g2_affine(out)) == _g2_key(g2_add(a, b) for a, b in zip(base, base[-1:] + base[:-1]))
+    assert _g2_key(_g2_affine(harness("g2", "pdbl", words, 48))) == _g2_key(g2_add(a, a) for a in base)
 
 
 @pytest.mark.parametrize("t", [2, 3, 17])

@@ -47,7 +47,9 @@ _SIGNATURES = {
     "zk_butterfly": [_P, _P, _P, _P, _P, _N, _P],
     "zk_normalize_raw": [_P, _P, _N, _P],
     "zk_g1_padd": [_P, _P, _P, _N, _P],
-    "zk_g1_pdbl": [_P, _P, _N, _P],
+    "zk_g1_pdbl": [_P, _P, _N, ctypes.c_int, _P],
+    "zk_g2_padd": [_P, _P, _P, _N, _P],
+    "zk_g2_pdbl": [_P, _P, _N, ctypes.c_int, _P],
     "zk_poseidon": [ctypes.c_int, _P, _P, _P, _P, _N, _P],
 }
 

@@ -1,9 +1,10 @@
-// BN254 field and G1 arithmetic shared by every kernel of zkfl_tpu_torch.
+// BN254 field, G1 and G2 arithmetic shared by every kernel of zkfl_tpu_torch.
 //
 // Stands in for the Pallas emitters of zkfl_tpu/ops/limb_kernels.py:106-309
 // (_emit_mul_wide, _emit_carry, _emit_mont_reduce, _emit_add, _emit_sub,
-// _emit_cond_sub_const) and for the RCB15 formulas of
-// zkfl_tpu/ops/point_kernels.py:68-128.
+// _emit_cond_sub_const), for the RCB15 formulas of
+// zkfl_tpu/ops/point_kernels.py:68-128 and for its Fq2 composition of
+// padd_g2 / pdbl_g2 (:237-340).
 //
 // Layout: an element is 8 x 32-bit little-endian limbs in Montgomery form
 // with R = 2^256, so its representative is the same integer as in
@@ -20,8 +21,12 @@
 
 #if defined(__CUDACC__)
 #define ZK_FN __host__ __device__ __forceinline__
+// Before a __host__ __device__ template that K6 instantiates with a
+// device-only policy (Fq2Lane): no host instance of it exists.
+#define ZK_HD_TEMPLATE _Pragma("nv_exec_check_disable")
 #else
 #define ZK_FN inline
+#define ZK_HD_TEMPLATE
 #endif
 
 namespace zk {
@@ -64,7 +69,7 @@ ZK_FN uint32_t g1_b3(int i) {
   return v[i];
 }
 
-struct Limbs {  // an element passed by value (kernel argument)
+struct Limbs {  // an element by value: a kernel argument, a point coordinate
   uint32_t v[NL];
 };
 
@@ -120,6 +125,142 @@ ZK_FN void mont_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) 
     t[NL] = t[NL + 1] + (uint32_t)(c >> 32);
   }
   cond_sub<F>(r, t, t[NL]);
+}
+
+#if defined(__CUDA_ARCH__)
+// ---------------------------------------------------------------------------
+// The point kernels' Montgomery product on the card: CIOS on PTX carry
+// chains with even/odd columns.  The accumulator T is two arrays, X at word
+// positions 0..8 and Y at 1..8, plus a pending word P at position 0:
+// T = X + Y 2^32 + P.  Per word b[i], the products of a's even limbs go into
+// X and those of its odd limbs into Y, so that in each chain the low and the
+// high half of one 32 x 32 product land on two neighbouring words
+// (mad.lo.cc then madc.hi.cc with the same operands); likewise m * p.  The
+// word shift of CIOS is a renaming: the new X is Y, the new Y is X[2..8],
+// and X[1] becomes P, which the next Y chain adds in (its carry lands on
+// Y[0], the next position).  Each chain is one asm statement: the carry
+// flag does not survive between statements.  For a < p and b < 2^256, T
+// stays below 2^288 within a step and below 2p after it (the C form's
+// bound), so X fits 9 words, Y 8 (Y 2^32 <= T), and no chain carries out
+// of its last word.
+// ---------------------------------------------------------------------------
+
+// x[0..8] += (e0, e1, e2, e3) * y, e_k's 64-bit product on words 2k, 2k+1;
+// the carry goes into x[8].
+__device__ __forceinline__ void mac_even(uint32_t x[NL + 1], uint32_t e0, uint32_t e1, uint32_t e2,
+                                         uint32_t e3, uint32_t y) {
+  asm("mad.lo.cc.u32  %0, %9, %13, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+      "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+      "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+      "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+      "addc.u32       %8, %8, 0;"
+      : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]), "+r"(x[5]), "+r"(x[6]),
+        "+r"(x[7]), "+r"(x[8])
+      : "r"(e0), "r"(e1), "r"(e2), "r"(e3), "r"(y));
+}
+
+// y8[0..7] += (o0, o1, o2, o3) * y on word pairs as above, after
+// x0 += pend with its carry into y8[0]; nothing carries out of y8[7].
+__device__ __forceinline__ void mac_odd(uint32_t y8[NL], uint32_t& x0, uint32_t pend, uint32_t o0,
+                                        uint32_t o1, uint32_t o2, uint32_t o3, uint32_t y) {
+  asm("add.cc.u32     %8, %8, %9;\n\t"
+      "madc.lo.cc.u32 %0, %10, %14, %0;\n\t"
+      "madc.hi.cc.u32 %1, %10, %14, %1;\n\t"
+      "madc.lo.cc.u32 %2, %11, %14, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %14, %3;\n\t"
+      "madc.lo.cc.u32 %4, %12, %14, %4;\n\t"
+      "madc.hi.cc.u32 %5, %12, %14, %5;\n\t"
+      "madc.lo.cc.u32 %6, %13, %14, %6;\n\t"
+      "madc.hi.u32    %7, %13, %14, %7;"
+      : "+r"(y8[0]), "+r"(y8[1]), "+r"(y8[2]), "+r"(y8[3]), "+r"(y8[4]), "+r"(y8[5]),
+        "+r"(y8[6]), "+r"(y8[7]), "+r"(x0)
+      : "r"(pend), "r"(o0), "r"(o1), "r"(o2), "r"(o3), "r"(y));
+}
+
+// r = t - p when t >= p, else t, for t < 2p: one borrow chain and selects.
+template <class F>
+__device__ __forceinline__ void cond_sub_cc(uint32_t r[NL], const uint32_t t[NL]) {
+  uint32_t d[NL], under;
+  asm("sub.cc.u32  %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32    %8, %25, %25;"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]),
+        "=r"(d[7]), "=r"(under)
+      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]), "r"(t[6]), "r"(t[7]),
+        "r"(F::p(0)), "r"(F::p(1)), "r"(F::p(2)), "r"(F::p(3)), "r"(F::p(4)), "r"(F::p(5)),
+        "r"(F::p(6)), "r"(F::p(7)), "r"(0u));
+#pragma unroll
+  for (int j = 0; j < NL; ++j) r[j] = under ? t[j] : d[j];
+}
+
+// a * b * R^-1 mod p for a < p, b < 2^256; canonical output, the same
+// integer as mont_mul's.
+template <class F>
+__device__ __forceinline__ void mont_mul_cc(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+  uint32_t x[NL + 1], y[NL], pend = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) x[j] = y[j] = 0;
+  x[NL] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    mac_odd(y, x[0], pend, a[1], a[3], a[5], a[7], b[i]);
+    mac_even(x, a[0], a[2], a[4], a[6], b[i]);
+    const uint32_t m = x[0] * F::NP0;
+    mac_even(x, F::p(0), F::p(2), F::p(4), F::p(6), m);  // x[0] becomes 0
+    mac_odd(y, x[0], 0u, F::p(1), F::p(3), F::p(5), F::p(7), m);
+    // T /= 2^32: X[1] -> P, Y -> X, X[2..8] -> Y
+    pend = x[1];
+    uint32_t nx[NL + 1], ny[NL];
+#pragma unroll
+    for (int j = 0; j < NL; ++j) nx[j] = y[j];
+    nx[NL] = 0;
+#pragma unroll
+    for (int j = 0; j < NL - 1; ++j) ny[j] = x[j + 2];
+    ny[NL - 1] = 0;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      x[j] = nx[j];
+      y[j] = ny[j];
+    }
+    x[NL] = nx[NL];
+  }
+  // T = X + Y 2^32 + P < 2p
+  uint32_t t[NL];
+  asm("add.cc.u32  %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32    %7, %15, %23;"
+      : "=r"(t[0]), "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]), "=r"(t[5]), "=r"(t[6]),
+        "=r"(t[7])
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]), "r"(x[6]), "r"(x[7]),
+        "r"(pend), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]), "r"(y[5]), "r"(y[6]));
+  cond_sub_cc<F>(r, t);
+}
+#endif  // __CUDA_ARCH__
+
+// The Fq product of the point formulas (K4, K6): the carry-chain form on
+// the card, the CIOS form above on the host, where g++ checks the formulas.
+// K1-K3 and K5 keep mont_mul on both.
+ZK_FN void fq_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+#if defined(__CUDA_ARCH__)
+  mont_mul_cc<Fq>(r, a, b);
+#else
+  mont_mul<Fq>(r, a, b);
+#endif
 }
 
 // a^2 * R^-1 mod p: the Montgomery product of a with itself, as
@@ -206,83 +347,229 @@ ZK_FN void normalize_raw(uint32_t r[NL], const int64_t cols[NL]) {
 }
 
 // ---------------------------------------------------------------------------
-// G1: complete projective formulas of Renes-Costello-Batina 2015 for a = 0,
-// b3 = 3b = 9 (Montgomery form).  Branchless; the identity is (0:1:0) and
-// P + P, P + (-P) and sums with the identity come out right.
+// Complete projective formulas of Renes-Costello-Batina 2015 for a = 0
+// (algorithms 7 and 9), written once over a field policy E: E::El is an
+// element and E's mul, add, sub and mul_b3 (by 3b, Montgomery form) act on
+// it.  Branchless; the identity is (0:1:0) and P + P, P + (-P) and sums
+// with the identity come out right.  The operation order is that of
+// zkfl_tpu's _padd_kernel / _pdbl_kernel and padd_g2 / pdbl_g2; every value
+// is canonical, so each policy gives the same integers.
 // ---------------------------------------------------------------------------
 
-struct G1 {
-  uint32_t x[NL], y[NL], z[NL];
+template <class E>
+struct Proj {
+  typename E::El x, y, z;
 };
 
-ZK_FN void g1_mul_b3(uint32_t r[NL], const uint32_t a[NL]) {
-  uint32_t b3[NL];
+// RCB15 algorithm 7: o = p + q (o may not alias p or q).
+ZK_HD_TEMPLATE
+template <class E>
+ZK_FN void rcb_padd(const E& e, Proj<E>& o, const Proj<E>& p, const Proj<E>& q) {
+  typename E::El t0, t1, t2, t3, t4, y3, u, v;
+  e.mul(t0, p.x, q.x);
+  e.mul(t1, p.y, q.y);
+  e.mul(t2, p.z, q.z);
+  e.add(u, p.x, p.y);
+  e.add(v, q.x, q.y);
+  e.mul(t3, u, v);
+  e.add(u, t0, t1);
+  e.sub(t3, t3, u);  // X1Y2 + X2Y1
+  e.add(u, p.y, p.z);
+  e.add(v, q.y, q.z);
+  e.mul(t4, u, v);
+  e.add(u, t1, t2);
+  e.sub(t4, t4, u);  // Y1Z2 + Y2Z1
+  e.add(u, p.x, p.z);
+  e.add(v, q.x, q.z);
+  e.mul(y3, u, v);
+  e.add(u, t0, t2);
+  e.sub(y3, y3, u);  // X1Z2 + X2Z1
+  typename E::El t00, t2b, y3b, z3a, t1b;
+  e.add(t00, t0, t0);
+  e.add(t00, t00, t0);  // 3 X1X2
+  e.mul_b3(t2b, t2);    // b3 Z1Z2
+  e.mul_b3(y3b, y3);    // b3 (X1Z2 + X2Z1)
+  e.add(z3a, t1, t2b);  // Y1Y2 + b3 Z1Z2
+  e.sub(t1b, t1, t2b);  // Y1Y2 - b3 Z1Z2
+  e.mul(u, t3, t1b);
+  e.mul(v, t4, y3b);
+  e.sub(o.x, u, v);
+  e.mul(u, t1b, z3a);
+  e.mul(v, t00, y3b);
+  e.add(o.y, u, v);
+  e.mul(u, z3a, t4);
+  e.mul(v, t00, t3);
+  e.add(o.z, u, v);
+}
+
+// RCB15 algorithm 9: o = 2p (o may not alias p).
+ZK_HD_TEMPLATE
+template <class E>
+ZK_FN void rcb_pdbl(const E& e, Proj<E>& o, const Proj<E>& p) {
+  typename E::El t0, t1, zz, xy, z3, t2, y3, t2s;
+  e.mul(t0, p.y, p.y);
+  e.mul(t1, p.y, p.z);
+  e.mul(zz, p.z, p.z);
+  e.mul(xy, p.x, p.y);
+  e.add(z3, t0, t0);
+  e.add(z3, z3, z3);
+  e.add(z3, z3, z3);  // 8 Y^2
+  e.mul_b3(t2, zz);   // b3 Z^2
+  e.add(y3, t0, t2);
+  e.add(t2s, t2, t2);
+  e.add(t2s, t2s, t2);  // 3 b3 Z^2
+  e.sub(t0, t0, t2s);
+  typename E::El x3a, y3a, x3h;
+  e.mul(x3a, t2, z3);
+  e.mul(o.z, t1, z3);
+  e.mul(y3a, t0, y3);
+  e.mul(x3h, t0, xy);
+  e.add(o.y, x3a, y3a);
+  e.add(o.x, x3h, x3h);
+}
+
+// ---------------------------------------------------------------------------
+// G1 over Fq: b3 = 3b = 9.
+// ---------------------------------------------------------------------------
+
+struct FqPoint {
+  using El = Limbs;
+  ZK_FN void mul(El& r, const El& a, const El& b) const { fq_mul(r.v, a.v, b.v); }
+  ZK_FN void add(El& r, const El& a, const El& b) const { zk::add<Fq>(r.v, a.v, b.v); }
+  ZK_FN void sub(El& r, const El& a, const El& b) const { zk::sub<Fq>(r.v, a.v, b.v); }
+  ZK_FN void mul_b3(El& r, const El& a) const {
+    El k;
 #pragma unroll
-  for (int j = 0; j < NL; ++j) b3[j] = g1_b3(j);
-  mont_mul<Fq>(r, a, b3);
+    for (int j = 0; j < NL; ++j) k.v[j] = g1_b3(j);
+    mul(r, a, k);
+  }
+};
+
+using G1 = Proj<FqPoint>;  // 24 words: X, Y, Z
+
+ZK_FN void g1_padd(G1& o, const G1& p, const G1& q) { rcb_padd(FqPoint{}, o, p, q); }
+ZK_FN void g1_pdbl(G1& o, const G1& p) { rcb_pdbl(FqPoint{}, o, p); }
+
+// ---------------------------------------------------------------------------
+// G2 over Fq2 = Fq[u] / (u^2 + 1): b3 = 3 b' for the twist's b'.
+// ---------------------------------------------------------------------------
+
+// Limb i of coefficient c0 (c1 = 0) or c1 (c1 = ~0) of 3 TWIST_B,
+// Montgomery form.
+ZK_FN uint32_t g2_b3(uint32_t c1, int i) {
+  const uint32_t v0[NL] = {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
+                           0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u};
+  const uint32_t v1[NL] = {0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
+                           0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au};
+  return v0[i] ^ ((v0[i] ^ v1[i]) & c1);
 }
 
-// RCB15 algorithm 7, in the order of point_kernels._padd_kernel.
-ZK_FN void g1_padd(G1& o, const G1& p, const G1& q) {
-  uint32_t t0[NL], t1[NL], t2[NL], t3[NL], t4[NL], y3[NL], u[NL], v[NL];
-  mont_mul<Fq>(t0, p.x, q.x);
-  mont_mul<Fq>(t1, p.y, q.y);
-  mont_mul<Fq>(t2, p.z, q.z);
-  add<Fq>(u, p.x, p.y);
-  add<Fq>(v, q.x, q.y);
-  mont_mul<Fq>(t3, u, v);
-  add<Fq>(u, t0, t1);
-  sub<Fq>(t3, t3, u);  // X1Y2 + X2Y1
-  add<Fq>(u, p.y, p.z);
-  add<Fq>(v, q.y, q.z);
-  mont_mul<Fq>(t4, u, v);
-  add<Fq>(u, t1, t2);
-  sub<Fq>(t4, t4, u);  // Y1Z2 + Y2Z1
-  add<Fq>(u, p.x, p.z);
-  add<Fq>(v, q.x, q.z);
-  mont_mul<Fq>(y3, u, v);
-  add<Fq>(u, t0, t2);
-  sub<Fq>(y3, y3, u);  // X1Z2 + X2Z1
-  uint32_t t00[NL], t2b[NL], y3b[NL], z3a[NL], t1b[NL];
-  add<Fq>(t00, t0, t0);
-  add<Fq>(t00, t00, t0);  // 3 X1X2
-  g1_mul_b3(t2b, t2);     // b3 Z1Z2
-  g1_mul_b3(y3b, y3);     // b3 (X1Z2 + X2Z1)
-  add<Fq>(z3a, t1, t2b);  // Y1Y2 + b3 Z1Z2
-  sub<Fq>(t1b, t1, t2b);  // Y1Y2 - b3 Z1Z2
-  mont_mul<Fq>(u, t3, t1b);
-  mont_mul<Fq>(v, t4, y3b);
-  sub<Fq>(o.x, u, v);
-  mont_mul<Fq>(u, t1b, z3a);
-  mont_mul<Fq>(v, t00, y3b);
-  add<Fq>(o.y, u, v);
-  mont_mul<Fq>(u, z3a, t4);
-  mont_mul<Fq>(v, t00, t3);
-  add<Fq>(o.z, u, v);
+// One coefficient of the Fq2 product (a0 + a1 u)(b0 + b1 u) as the thread
+// that holds it computes it: (a, b) are this thread's coefficients of the
+// operands, (ap, bp) its partner's.  c1 = 0 gives c0 = a0 b0 - a1 b1,
+// c1 = ~0 gives c1 = a1 b0 + a0 b1: two Fq products either way.  The
+// operands and the result are picked with the mask c1, not a branch, so
+// that both halves of a warp run one path (K6 keeps the mask opaque to the
+// compiler, so that it cannot specialise the code per half).
+ZK_FN void fq2_mul_half(uint32_t r[NL], uint32_t c1, const uint32_t a[NL], const uint32_t b[NL],
+                        const uint32_t ap[NL], const uint32_t bp[NL]) {
+  uint32_t u[NL], w[NL], x[NL], y[NL], s[NL], d[NL];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const uint32_t flip = (b[j] ^ bp[j]) & c1;
+    u[j] = b[j] ^ flip;   // bp on c1
+    w[j] = bp[j] ^ flip;  // b on c1
+  }
+  fq_mul(x, a, u);   // a0 b0 | a1 b0
+  fq_mul(y, ap, w);  // a1 b1 | a0 b1
+  add<Fq>(s, x, y);
+  sub<Fq>(d, x, y);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) r[j] = d[j] ^ ((d[j] ^ s[j]) & c1);
 }
 
-// RCB15 algorithm 9, in the order of point_kernels._pdbl_kernel.
-ZK_FN void g1_pdbl(G1& o, const G1& p) {
-  uint32_t t0[NL], t1[NL], zz[NL], xy[NL], z3[NL], t2[NL], y3[NL], t2s[NL];
-  mont_mul<Fq>(t0, p.y, p.y);
-  mont_mul<Fq>(t1, p.y, p.z);
-  mont_mul<Fq>(zz, p.z, p.z);
-  mont_mul<Fq>(xy, p.x, p.y);
-  add<Fq>(z3, t0, t0);
-  add<Fq>(z3, z3, z3);
-  add<Fq>(z3, z3, z3);  // 8 Y^2
-  g1_mul_b3(t2, zz);    // b3 Z^2
-  add<Fq>(y3, t0, t2);
-  add<Fq>(t2s, t2, t2);
-  add<Fq>(t2s, t2s, t2);  // 3 b3 Z^2
-  sub<Fq>(t0, t0, t2s);
-  uint32_t x3a[NL], y3a[NL], x3h[NL];
-  mont_mul<Fq>(x3a, t2, z3);
-  mont_mul<Fq>(o.z, t1, z3);
-  mont_mul<Fq>(y3a, t0, y3);
-  mont_mul<Fq>(x3h, t0, xy);
-  add<Fq>(o.y, x3a, y3a);
-  add<Fq>(o.x, x3h, x3h);
-}
+// Both coefficients in one thread (El = c0, c1): the host's G2 arithmetic,
+// which tests/test_torch_csrc.py runs with g++.  It computes each half as
+// K6's two threads do, without the exchange.
+struct Fq2Pair {
+  struct El {
+    uint32_t c[2][NL];
+  };
+  ZK_FN void mul(El& r, const El& a, const El& b) const {
+    El t;
+    fq2_mul_half(t.c[0], 0u, a.c[0], b.c[0], a.c[1], b.c[1]);
+    fq2_mul_half(t.c[1], ~0u, a.c[1], b.c[1], a.c[0], b.c[0]);
+    r = t;
+  }
+  ZK_FN void add(El& r, const El& a, const El& b) const {
+    zk::add<Fq>(r.c[0], a.c[0], b.c[0]);
+    zk::add<Fq>(r.c[1], a.c[1], b.c[1]);
+  }
+  ZK_FN void sub(El& r, const El& a, const El& b) const {
+    zk::sub<Fq>(r.c[0], a.c[0], b.c[0]);
+    zk::sub<Fq>(r.c[1], a.c[1], b.c[1]);
+  }
+  ZK_FN void mul_b3(El& r, const El& a) const {
+    El k;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      k.c[0][j] = g2_b3(0u, j);
+      k.c[1][j] = g2_b3(~0u, j);
+    }
+    mul(r, a, k);
+  }
+};
+
+using G2 = Proj<Fq2Pair>;  // 48 words: X, Y, Z, each c0 then c1
+
+ZK_FN void g2_padd(G2& o, const G2& p, const G2& q) { rcb_padd(Fq2Pair{}, o, p, q); }
+ZK_FN void g2_pdbl(G2& o, const G2& p) { rcb_pdbl(Fq2Pair{}, o, p); }
+
+#if defined(__CUDACC__)
+// K6's split of Fq2 over a pair of threads: lanes l and l ^ 16 of a warp
+// hold c0 and c1 of one point, El is this thread's coefficient, and a
+// product fetches the partner's coefficients of its operands with
+// __shfl_xor_sync(., 16).  Every thread of the warp must call mul and
+// mul_b3 together (full mask).  The constant b3 needs no exchange: both
+// threads know both of its coefficients.  add and sub stay in the thread.
+struct Fq2Lane {
+  using El = Limbs;
+  uint32_t c1;  // ~0 where this thread holds coefficient c1 (lanes 16-31), else 0
+
+  // The mask of this lane, hidden from the optimiser (see fq2_mul_half).
+  __device__ __forceinline__ static Fq2Lane of_lane(int lane) {
+    uint32_t m = 0u - (uint32_t)(lane >> 4);
+    asm("" : "+r"(m));
+    return Fq2Lane{m};
+  }
+
+  __device__ __forceinline__ static void partner(El& r, const El& a) {
+#pragma unroll
+    for (int j = 0; j < NL; ++j) r.v[j] = __shfl_xor_sync(0xffffffffu, a.v[j], 16);
+  }
+  __device__ __forceinline__ void mul(El& r, const El& a, const El& b) const {
+    El ap, bp;
+    partner(ap, a);
+    partner(bp, b);
+    fq2_mul_half(r.v, c1, a.v, b.v, ap.v, bp.v);
+  }
+  __device__ __forceinline__ void add(El& r, const El& a, const El& b) const {
+    zk::add<Fq>(r.v, a.v, b.v);
+  }
+  __device__ __forceinline__ void sub(El& r, const El& a, const El& b) const {
+    zk::sub<Fq>(r.v, a.v, b.v);
+  }
+  __device__ __forceinline__ void mul_b3(El& r, const El& a) const {
+    El ap, k, kp;
+    partner(ap, a);
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      k.v[j] = g2_b3(c1, j);
+      kp.v[j] = g2_b3(~c1, j);
+    }
+    fq2_mul_half(r.v, c1, a.v, k.v, ap.v, kp.v);
+  }
+};
+#endif  // __CUDACC__
 
 }  // namespace zk

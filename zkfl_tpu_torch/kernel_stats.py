@@ -1,0 +1,120 @@
+"""Static facts of the built CUDA kernels: ptxas's registers and spills per
+entry function, and SASS instruction counts from cuobjdump.
+
+    python -m zkfl_tpu_torch.kernel_stats [LIB]
+
+prints ptxas's report (from the build.log beside LIB) and the SASS counts of
+the point kernels in LIB, per Fq product (default LIB: this checkout's
+build, built first if needed).  Needs the CUDA toolkit (nvcc, cuobjdump);
+no card.  chip_smoke.py prints the same report in its build phase.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+from . import backend
+
+# entry name -> Fq products per thread in the kernel body (K4: one point a
+# thread; K6: one Fq2 coefficient a thread, 2 Fq products per Fq2 product;
+# pdbl's body is one doubling of its loop).
+PRODUCTS = {"g1_padd": 14, "g1_pdbl": 9, "g2_padd": 28, "g2_pdbl": 18}
+ENTRIES = ("field_ew", "butterfly", "normalize_raw", "g1_padd", "g1_pdbl", "g2_padd", "g2_pdbl",
+           "poseidon")
+REGS_PER_SM = 65536
+THREADS = 128  # the point kernels' block size
+
+
+def entry_name(mangled: str) -> str:
+    """A readable name for a mangled kernel symbol: its entry, then the field
+    and op (K1) or the width (K5)."""
+    name = next((k for k in ENTRIES if f"{k}_kernel" in mangled), mangled)
+    m = re.search(r"IN2zk2(F[rq])ELi(\d)E", mangled)
+    name += f"<{m.group(1)}, op {m.group(2)}>" if m else ""
+    m = re.search(r"poseidon_kernelILi(\d+)E", mangled)
+    return name + (f"<t={m.group(1)}>" if m else "")
+
+
+def ptxas_report(log: str) -> list:
+    """[(entry, registers, spill line)] from nvcc -Xptxas -v output."""
+    out, entry, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = entry_name(line.split("'")[1])
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            out.append((entry, int(line.split("Used")[1].split()[0]), spills))
+    return out
+
+
+def blocks_per_sm(registers: int, threads: int = THREADS) -> int:
+    """Blocks of ``threads`` that the SM's register file holds (registers
+    allocated in units of 8 a thread)."""
+    return REGS_PER_SM // (threads * -(-registers // 8) * 8)
+
+
+def sass_counts(binary: Path) -> dict:
+    """{entry: Counter of SASS opcode classes} for every kernel in a built
+    library: "all", "imad" (IMAD* multiply-adds, not the IMAD.MOV /
+    IMAD.SHL / IMAD.IADD forms ptxas uses as moves and shifts), "iadd3",
+    "shfl"."""
+    nvcc = backend.nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    res = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "--dump-sass", str(binary)],
+                         capture_output=True, text=True, check=True)
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            name = entry_name(mangled)
+            if name in counts:  # another function of the same entry: keep it apart
+                name = f"{name} [{mangled}]"
+            counts[name] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name is None or m is None:
+            continue
+        op = m.group(2)
+        c = counts[name]
+        c["all"] += 1
+        if op.startswith("IMAD") and not op.startswith(("IMAD.MOV", "IMAD.SHL", "IMAD.IADD")):
+            c["imad"] += 1
+        elif op.startswith("IADD3"):
+            c["iadd3"] += 1
+        elif op.startswith("SHFL"):
+            c["shfl"] += 1
+    return counts
+
+
+def point_sass_lines(binary: Path) -> list:
+    """One line per point kernel: SASS instructions in all and per Fq product."""
+    lines = []
+    for name, c in sorted(sass_counts(binary).items()):
+        k = PRODUCTS.get(name.split(" [")[0])
+        if k:
+            lines.append(f"{name}: {c['all']} SASS instructions, {c['imad']} IMAD, "
+                         f"{c['iadd3']} IADD3, {c['shfl']} SHFL; per Fq product "
+                         f"{c['all'] / k:.1f} instructions, {c['imad'] / k:.1f} IMAD "
+                         f"({k} products a thread)")
+    return lines
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("lib", nargs="?", help="shared library to dump (default: this checkout's build)")
+    lib = Path(ap.parse_args(argv).lib or backend.build())
+    lines = [f"{entry}: {regs} registers ({blocks_per_sm(regs)} blocks of {THREADS} fit an SM); "
+             f"{spills}" for entry, regs, spills in ptxas_report((lib.parent / "build.log").read_text())]
+    print("\n".join(lines + point_sass_lines(lib)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

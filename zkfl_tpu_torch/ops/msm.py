@@ -1,7 +1,7 @@
 """Batched Pippenger MSM over G1/G2 (counterpart of zkfl_tpu/ops/msm_pallas.py).
 
 The same sort + prefix-scan bucket accumulation as zkfl_tpu, written as torch
-glue around the point ops (G1: the K4 kernel; G2: FQK kernels).  For each
+glue around the point ops (G1: the K4 kernel; G2: the K6 kernel).  For each
 window w of the scalars:
 
   1. sort lanes by digit, descending;
@@ -156,8 +156,7 @@ def _horner(S, ops, wbits: int):
     nw = S.shape[-1]
     acc = S[..., nw - 1].contiguous()
     for w in range(nw - 2, -1, -1):
-        for _ in range(wbits):
-            acc = ops.pdbl(acc)
+        acc = ops.pdbl(acc, wbits)  # wbits doublings, one launch
         acc = ops.padd(acc, S[..., w].contiguous())
     return acc
 

@@ -6,10 +6,14 @@ Layouts (int32 bit patterns of uint32 limbs, Fq Montgomery form):
   G2 point batch: [3, 2, 8, *B]  (Fq2 coordinates c0 + c1*u)
 The identity is (0:1:0).
 
-G1 ``padd``/``pdbl`` run the K4 kernel (csrc/g1_point.cu) on CUDA tensors,
-counted as ``g1.padd``/``g1.pdbl``, and their plain torch versions on CPU
-tensors.  G2 ops are composed of ``FQK`` ops with Karatsuba lane-stacking,
-as in zkfl_tpu (point_kernels.py:237-340): a fused Fq2 kernel is later work.
+G1 ``padd``/``pdbl`` run the K4 kernel (csrc/g1_point.cu) and G2
+``padd_g2``/``pdbl_g2`` the K6 kernel (csrc/g2_point.cu) on CUDA tensors,
+counted as ``g1.padd``/``g1.pdbl``/``g2.padd``/``g2.pdbl``; CPU tensors take
+the plain torch versions (``*_plain``: int64 16-bit halves through
+``FQK.plain``, so they launch no kernel on a card either).  The G2 plain
+versions keep zkfl_tpu's composition (point_kernels.py:237-340): Karatsuba
+over u^2 = -1 with each stage's products stacked into one call.  ``pdbl``
+and ``pdbl_g2`` take a doubling count, one launch for all of them.
 """
 
 from __future__ import annotations
@@ -39,12 +43,26 @@ def _flatten(x: torch.Tensor, coord_dims: int):
     return x.contiguous().reshape(lead + (m,)), batch
 
 
-def _check_g1(*pts: torch.Tensor) -> None:
+def _check_points(lead, what, *pts: torch.Tensor) -> None:
     for t in pts:
-        if t.dtype != torch.int32 or tuple(t.shape[:2]) != (3, N_LIMBS):
-            raise ValueError(f"expected int32 [3, 8, ...] G1 points, got {t.dtype} {tuple(t.shape)}")
+        if t.dtype != torch.int32 or tuple(t.shape[: len(lead)]) != lead:
+            raise ValueError(f"expected int32 {list(lead) + ['...']} {what} points, "
+                             f"got {t.dtype} {tuple(t.shape)}")
     if len({tuple(t.shape) for t in pts}) != 1:
-        raise ValueError("G1 operands differ in shape")
+        raise ValueError(f"{what} operands differ in shape")
+
+
+def _check_g1(*pts: torch.Tensor) -> None:
+    _check_points((3, N_LIMBS), "G1", *pts)
+
+
+def _check_g2(*pts: torch.Tensor) -> None:
+    _check_points((3, 2, N_LIMBS), "G2", *pts)
+
+
+def _check_times(times: int) -> None:
+    if int(times) != times or times < 1:
+        raise ValueError(f"doubling count must be a positive integer, got {times!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +98,13 @@ def padd_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.stack([join16(x3), join16(yz[:, 0]), join16(yz[:, 1])])
 
 
-def pdbl_plain(p: torch.Tensor) -> torch.Tensor:
+def pdbl_plain(p: torch.Tensor, times: int = 1) -> torch.Tensor:
+    for _ in range(times):
+        p = _pdbl_plain_once(p)
+    return p
+
+
+def _pdbl_plain_once(p: torch.Tensor) -> torch.Tensor:
     F = FQK.plain
     x, y, z = (split16(p[i]) for i in range(3))
     m1 = F.mont_mul(_st(y, y, z, x), _st(y, z, z, y))
@@ -117,15 +141,16 @@ def padd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return out.reshape((3, N_LIMBS) + batch)
 
 
-def pdbl(p: torch.Tensor) -> torch.Tensor:
-    """Complete G1 doubling on [3, 8, *B] points."""
+def pdbl(p: torch.Tensor, times: int = 1) -> torch.Tensor:
+    """``times`` complete G1 doublings (2^times P) of [3, 8, *B] points."""
     _check_g1(p)
+    _check_times(times)
     if on_cpu(p):
-        return pdbl_plain(p)
+        return pdbl_plain(p, times)
     pf, batch = _flatten(p, 1)
     out = torch.empty_like(pf)
     backend.launch("zk_g1_pdbl", "g1.pdbl", pf.data_ptr(), out.data_ptr(),
-                   pf.shape[-1], backend.stream(pf.device))
+                   pf.shape[-1], times, backend.stream(pf.device))
     return out.reshape((3, N_LIMBS) + batch)
 
 
@@ -143,87 +168,125 @@ def select(mask: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# G2 ops — [3, 2, 8, *B], Fq2 arithmetic through lane-stacked FQK ops
+# G2 plain versions — Fq2 elements as int64 [16, 2, L] (16-bit limbs, c0 c1)
 # ---------------------------------------------------------------------------
 
 
 def _fq2_mul_many(pairs):
-    """pairs of ([2, 8, L], [2, 8, L]) -> products; Karatsuba over u^2 = -1,
-    every pair's three Fq multiplies in ONE FQK.mont_mul call."""
-    k = len(pairs)
-    a0 = torch.cat([a[0] for a, _ in pairs], -1)
-    a1 = torch.cat([a[1] for a, _ in pairs], -1)
-    b0 = torch.cat([b[0] for _, b in pairs], -1)
-    b1 = torch.cat([b[1] for _, b in pairs], -1)
-    sums = FQK.add(torch.cat([a0, b0], -1), torch.cat([a1, b1], -1))
-    n = a0.shape[-1]
-    prod = FQK.mont_mul(torch.cat([a0, a1, sums[:, :n]], -1), torch.cat([b0, b1, sums[:, n:]], -1))
-    t0, t1, t2 = prod[:, :n], prod[:, n : 2 * n], prod[:, 2 * n :]
-    c0 = FQK.sub(t0, t1)                   # a0b0 - a1b1
-    c1 = FQK.sub(t2, FQK.add(t0, t1))      # (a0+a1)(b0+b1) - a0b0 - a1b1
-    L = n // k
-    return [torch.stack([c0[:, i * L : (i + 1) * L], c1[:, i * L : (i + 1) * L]]) for i in range(k)]
+    """pairs of Fq2 elements [16, 2, L] -> their products; Karatsuba over
+    u^2 = -1, every pair's three Fq products in one plain call."""
+    F = FQK.plain
+    a = torch.stack([x for x, _ in pairs], 2)  # [16, 2, k, L]
+    b = torch.stack([y for _, y in pairs], 2)
+    sums = F.add(torch.stack([a[:, 0], b[:, 0]], 1), torch.stack([a[:, 1], b[:, 1]], 1))
+    prod = F.mont_mul(torch.stack([a[:, 0], a[:, 1], sums[:, 0]], 1),
+                      torch.stack([b[:, 0], b[:, 1], sums[:, 1]], 1))
+    t0, t1, t2 = prod[:, 0], prod[:, 1], prod[:, 2]
+    c0 = F.sub(t0, t1)                   # a0b0 - a1b1
+    c1 = F.sub(t2, F.add(t0, t1))        # (a0+a1)(b0+b1) - a0b0 - a1b1
+    out = torch.stack([c0, c1], 1)
+    return [out[:, :, i] for i in range(len(pairs))]
 
 
-def _fq2_add(a, b):
-    s = FQK.add(torch.cat([a[0], a[1]], -1), torch.cat([b[0], b[1]], -1))
-    return s.reshape(N_LIMBS, 2, -1).transpose(0, 1)
+def _fq2_b3(like: torch.Tensor) -> torch.Tensor:
+    """3 b' of the twist as an Fq2 element shaped like ``like``."""
+    c = [(v >> (16 * i)) & 0xFFFF for i in range(16) for v in _B3_G2]
+    t = torch.tensor(c, dtype=torch.int64, device=like.device).reshape(16, 2, 1)
+    return t.expand(like.shape).contiguous()
 
 
-def _fq2_sub(a, b):
-    s = FQK.sub(torch.cat([a[0], a[1]], -1), torch.cat([b[0], b[1]], -1))
-    return s.reshape(N_LIMBS, 2, -1).transpose(0, 1)
+def _g2_split(p: torch.Tensor):
+    """[3, 2, 8, L] -> X, Y, Z as int64 [16, 2, L]."""
+    return [split16(p[i].transpose(0, 1)) for i in range(3)]
 
 
-def _fq2_b3(L: int, device: torch.device) -> torch.Tensor:
-    c = torch.from_numpy(FQK.pack(list(_B3_G2), mont=False)).to(device)  # [8, 2]
-    return c.t().reshape(2, N_LIMBS, 1).expand(2, N_LIMBS, L)
+def _g2_join(*coords) -> torch.Tensor:
+    return torch.stack([join16(c).transpose(0, 1) for c in coords])
+
+
+def padd_g2_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """RCB15 alg. 7 over Fq2 on [3, 2, 8, *B], plain torch."""
+    F = FQK.plain
+    pf, batch = _flatten(p, 2)
+    qf, _ = _flatten(q, 2)
+    x1, y1, z1 = _g2_split(pf)
+    x2, y2, z2 = _g2_split(qf)
+    b3 = _fq2_b3(x1)
+    t0, t1, t2, p3, p4, p5 = _fq2_mul_many([
+        (x1, x2), (y1, y2), (z1, z2),
+        (F.add(x1, y1), F.add(x2, y2)),
+        (F.add(y1, z1), F.add(y2, z2)),
+        (F.add(x1, z1), F.add(x2, z2)),
+    ])
+    t3 = F.sub(p3, F.add(t0, t1))
+    t4 = F.sub(p4, F.add(t1, t2))
+    y3 = F.sub(p5, F.add(t0, t2))
+    t00 = F.add(F.add(t0, t0), t0)
+    t2b, y3b = _fq2_mul_many([(b3, t2), (b3, y3)])
+    z3a = F.add(t1, t2b)
+    t1b = F.sub(t1, t2b)
+    m3 = _fq2_mul_many([(t3, t1b), (t4, y3b), (t1b, z3a), (t00, y3b), (z3a, t4), (t00, t3)])
+    x3 = F.sub(m3[0], m3[1])
+    y3f = F.add(m3[2], m3[3])
+    z3f = F.add(m3[4], m3[5])
+    return _g2_join(x3, y3f, z3f).reshape((3, 2, N_LIMBS) + batch)
+
+
+def _pdbl_g2_plain_once(pf: torch.Tensor) -> torch.Tensor:
+    F = FQK.plain
+    x, y, z = _g2_split(pf)
+    b3 = _fq2_b3(x)
+    t0, t1, zz, xy = _fq2_mul_many([(y, y), (y, z), (z, z), (x, y)])
+    z3 = F.add(t0, t0)
+    z3 = F.add(z3, z3)
+    z3 = F.add(z3, z3)
+    (t2,) = _fq2_mul_many([(b3, zz)])
+    y3 = F.add(t0, t2)
+    t2s = F.add(F.add(t2, t2), t2)
+    t0s = F.sub(t0, t2s)
+    x3a, z3f, y3a, x3h = _fq2_mul_many([(t2, z3), (t1, z3), (t0s, y3), (t0s, xy)])
+    y3f = F.add(x3a, y3a)
+    x3f = F.add(x3h, x3h)
+    return _g2_join(x3f, y3f, z3f)
+
+
+def pdbl_g2_plain(p: torch.Tensor, times: int = 1) -> torch.Tensor:
+    """``times`` RCB15 alg. 9 doublings over Fq2 on [3, 2, 8, *B], plain torch."""
+    pf, batch = _flatten(p, 2)
+    for _ in range(times):
+        pf = _pdbl_g2_plain_once(pf)
+    return pf.reshape((3, 2, N_LIMBS) + batch)
+
+
+# ---------------------------------------------------------------------------
+# G2 public ops
+# ---------------------------------------------------------------------------
 
 
 def padd_g2(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Complete G2 addition (RCB15 alg. 7 over Fq2) on [3, 2, 8, *B]."""
+    _check_g2(p, q)
+    if on_cpu(p, q):
+        return padd_g2_plain(p, q)
     pf, batch = _flatten(p, 2)
     qf, _ = _flatten(q, 2)
-    x1, y1, z1 = pf[0], pf[1], pf[2]
-    x2, y2, z2 = qf[0], qf[1], qf[2]
-    b3 = _fq2_b3(x1.shape[-1], p.device)
-    t0, t1, t2, p3, p4, p5 = _fq2_mul_many([
-        (x1, x2), (y1, y2), (z1, z2),
-        (_fq2_add(x1, y1), _fq2_add(x2, y2)),
-        (_fq2_add(y1, z1), _fq2_add(y2, z2)),
-        (_fq2_add(x1, z1), _fq2_add(x2, z2)),
-    ])
-    t3 = _fq2_sub(p3, _fq2_add(t0, t1))
-    t4 = _fq2_sub(p4, _fq2_add(t1, t2))
-    y3 = _fq2_sub(p5, _fq2_add(t0, t2))
-    t00 = _fq2_add(_fq2_add(t0, t0), t0)
-    t2b, y3b = _fq2_mul_many([(b3, t2), (b3, y3)])
-    z3a = _fq2_add(t1, t2b)
-    t1b = _fq2_sub(t1, t2b)
-    m3 = _fq2_mul_many([(t3, t1b), (t4, y3b), (t1b, z3a), (t00, y3b), (z3a, t4), (t00, t3)])
-    x3 = _fq2_sub(m3[0], m3[1])
-    y3f = _fq2_add(m3[2], m3[3])
-    z3f = _fq2_add(m3[4], m3[5])
-    return torch.stack([x3, y3f, z3f]).reshape((3, 2, N_LIMBS) + batch)
+    out = torch.empty_like(pf)
+    backend.launch("zk_g2_padd", "g2.padd", pf.data_ptr(), qf.data_ptr(),
+                   out.data_ptr(), pf.shape[-1], backend.stream(pf.device))
+    return out.reshape((3, 2, N_LIMBS) + batch)
 
 
-def pdbl_g2(p: torch.Tensor) -> torch.Tensor:
-    """Complete G2 doubling (RCB15 alg. 9 over Fq2) on [3, 2, 8, *B]."""
+def pdbl_g2(p: torch.Tensor, times: int = 1) -> torch.Tensor:
+    """``times`` complete G2 doublings (RCB15 alg. 9 over Fq2) on [3, 2, 8, *B]."""
+    _check_g2(p)
+    _check_times(times)
+    if on_cpu(p):
+        return pdbl_g2_plain(p, times)
     pf, batch = _flatten(p, 2)
-    x, y, z = pf[0], pf[1], pf[2]
-    b3 = _fq2_b3(x.shape[-1], p.device)
-    t0, t1, zz, xy = _fq2_mul_many([(y, y), (y, z), (z, z), (x, y)])
-    z3 = _fq2_add(t0, t0)
-    z3 = _fq2_add(z3, z3)
-    z3 = _fq2_add(z3, z3)
-    (t2,) = _fq2_mul_many([(b3, zz)])
-    y3 = _fq2_add(t0, t2)
-    t2s = _fq2_add(_fq2_add(t2, t2), t2)
-    t0s = _fq2_sub(t0, t2s)
-    x3a, z3f, y3a, x3h = _fq2_mul_many([(t2, z3), (t1, z3), (t0s, y3), (t0s, xy)])
-    y3f = _fq2_add(x3a, y3a)
-    x3f = _fq2_add(x3h, x3h)
-    return torch.stack([x3f, y3f, z3f]).reshape((3, 2, N_LIMBS) + batch)
+    out = torch.empty_like(pf)
+    backend.launch("zk_g2_pdbl", "g2.pdbl", pf.data_ptr(), out.data_ptr(),
+                   pf.shape[-1], times, backend.stream(pf.device))
+    return out.reshape((3, 2, N_LIMBS) + batch)
 
 
 def inf_point_g2(batch, device: torch.device) -> torch.Tensor:
