@@ -7,16 +7,17 @@ Needs one CUDA card, nvcc, g++ and this checkout; imports nothing of JAX and
 nothing of zkfl_tpu.  Phases (any failure raises and exits non-zero):
   1. probe: card name, power limit and SM clock, CUDA / nvcc / Triton versions;
   2. build the six CUDA kernels (K1-K6) from zkfl_tpu_torch/csrc; ptxas's
-     registers and spills per entry, SASS instructions per Fq product of
-     the point kernels (cuobjdump);
+     registers and spills per entry, SASS instructions per field product of
+     K1, K4, K5 and K6 (cuobjdump);
   3. every kernel op against its plain torch version on the same random
      canonical inputs (exact equality): the field ops at 2^18 lanes, the G1
      ops at 2^17, the G2 ops at 3 x 2^14 (the G2 MSM's widest launch), both
      doublings also 8 at a time, with identity, P + P, P + (-P) and
      projective representatives whose coordinates have the limbs of p - 1
-     checked against the host curve too, the Poseidon permutation at
-     t = 2, 3, 6, 17 on 2^12 states; the card time of each (over input sets
-     larger than the L2) and the wall time per call;
+     checked against the host curve too, the Poseidon permutation at every
+     width t = 2..17 (2^12 states at t = 2, 3, 6, 17, 2^8 at the others);
+     the card time of each (over input sets larger than the L2) and the
+     wall time per call;
   4. MICRO_CONFIG balance proof on TorchEngine == HostEngine's, bit for
      bit, under deterministic blinding;
   5. one REFERENCE_CONFIG FL round through the port's RoundProver and
@@ -46,7 +47,7 @@ G2_LANES = 3 << 14       # the G2 MSM's serial-scan launches: 3 clients x 32 win
 LADDER_LANES = {"g1": 12, "g2": 3}  # the Horner ladder's accumulators: 3 clients x 4 / x 1
 WBITS = 8                # doublings per window of the ladder
 POSEIDON_LANES = 1 << 12
-POSEIDON_WIDTHS = (2, 3, 6, 17)
+POSEIDON_WIDE_CHECK = (2, 3, 6, 17)  # checked on POSEIDON_LANES states, the other widths on 2^8
 COMMIT_DEPTH = 20        # 2^20 samples: a realistic client's dataset
 CHECK_DEPTH = 12         # the depth whose root the native host tree checks
 PROD_DIM = 16            # features per sample (zkfl_tpu/fl/prod.py:37-40)
@@ -60,6 +61,7 @@ SMS, INT32_LANES = 132, 64
 MONT = 2 * 8 * 8 + 8     # 32-bit multiply-adds of one CIOS Montgomery product
 SQR = 8 * 9 // 2 + 8 * 8 + 8  # of a Montgomery squaring (each cross product once)
 REDC = 8 * 8 + 8         # of a Montgomery reduction alone (a product by 1)
+WIDE = 8 * 8             # of a 512-bit product left unreduced
 SLEEP_CYCLES = 10**8     # about 50 ms of the card's clock
 ROTATE = 8               # input sets per timed op: >= 112 MB between reuses
 
@@ -143,13 +145,18 @@ def rand_elems(gen, n, dev, p):
 
 
 def poseidon_madds(t: int) -> int:
-    """32-bit multiply-adds of one width-t permutation: x^5 (two squarings
-    and a product) on t lanes in the R_F full rounds and on one lane in the
-    R_P partial ones, a t x t mix of products in every round."""
+    """32-bit multiply-adds of one width-t permutation, the fewest of a
+    correct design (the optimized form, zkfl_tpu_torch/poseidon/optimized.py):
+    x^5 (two squarings and a product) on t lanes in the R_F full rounds, then
+    a mix of t^2 wide products (WIDE each) and one reduction per lane; x^5 on
+    one lane in the R_P partial ones, then a t-term sparse row (t wide
+    products and a reduction) and t - 1 products for the column."""
     from zkfl_tpu_torch.poseidon.grain import R_F, partial_rounds
 
     sbox = 2 * SQR + MONT
-    return R_F * (t * sbox + t * t * MONT) + partial_rounds(t) * (sbox + t * t * MONT)
+    full = t * sbox + t * t * WIDE + t * REDC
+    partial = sbox + t * WIDE + REDC + (t - 1) * MONT
+    return R_F * full + partial_rounds(t) * partial
 
 
 # Point op -> (32-bit multiply-adds, bytes read + written) per point: the
@@ -391,14 +398,15 @@ def phase_kernels(dev, backend, sm_mhz):
             check("fr.normalize_raw", F.normalize_raw, F.normalize_raw_plain, col_sets, n)
         del sets
 
-    # Poseidon: random states, then the all-0, all-1 and all-(p-1) states.
+    # Poseidon at every width: random states, then the all-0, all-1 and
+    # all-(p-1) states.
     special = torch.from_numpy(ints_to_limbs([0, 1, FRK.p - 1])).to(dev)
-    for t in POSEIDON_WIDTHS:
-        s = rand_elems(gen, POSEIDON_LANES * t, dev, FRK.p).reshape(8, POSEIDON_LANES, t)
+    for t in range(2, 18):
+        lanes = POSEIDON_LANES if t in POSEIDON_WIDE_CHECK else 1 << 8
+        s = rand_elems(gen, lanes * t, dev, FRK.p).reshape(8, lanes, t)
         s[:, :3, :] = special[:, :, None]
         kern = PoseidonKernel(t)
-        check(f"fr.poseidon t={t}", kern.permute, kern.permute_plain, [(s,)], POSEIDON_LANES,
-              reps=5)
+        check(f"fr.poseidon t={t}", kern.permute, kern.permute_plain, [(s,)], lanes, reps=5)
 
     for group in ("g1", "g2"):
         point_checks(check, rows, dev, gen, group)
@@ -714,6 +722,8 @@ def phase_commitment(dev, backend, sm_mhz):
 KERNELS = {
     "fr.to_mont": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:374"),
     "fr.mont_mul": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:357"),
+    "fr.add": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:364"),
+    "fr.sub": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:367"),
     "fr.mont_sqr": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:360"),
     "fr.mont_mul_const": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:571"),
     "fr.mul_sub_mul_const": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:396"),
@@ -726,15 +736,21 @@ KERNELS = {
     "fq.mont_sqr": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:360"),
     "fq.add": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:364"),
     "fq.sub": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:367"),
+    "fq.from_mont": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:370"),
+    "fq.mont_mul_const": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:571"),
+    "fq.mul_sub_mul_const": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:396"),
     "g1.padd": ("g1_point.cu", "zkfl_tpu/ops/point_kernels.py:68"),
     "g1.pdbl": ("g1_point.cu", "zkfl_tpu/ops/point_kernels.py:101"),
     "g2.padd": ("g2_point.cu", "zkfl_tpu/ops/point_kernels.py:284"),
     "g2.pdbl": ("g2_point.cu", "zkfl_tpu/ops/point_kernels.py:321"),
 }
 # These report the launches of their check in phase 3: no path of either
-# package squares a field element, and since K6 the round launches no Fq
-# add, sub or product (phase 5 asserts that the round made none).
-CHECK_ONLY = ("fr.mont_sqr", "fq.mont_sqr", "fq.add", "fq.sub", "fq.mont_mul")
+# package squares a field element or launches an Fr add or sub (K2 adds
+# inside the butterfly), the QAP's from_mont and two const ops run over Fr
+# only, and since K6 the round launches no Fq add, sub or product (phase 5
+# asserts that it made none of those three).
+CHECK_ONLY = ("fr.mont_sqr", "fq.mont_sqr", "fr.add", "fr.sub", "fq.add", "fq.sub", "fq.mont_mul",
+              "fq.from_mont", "fq.mont_mul_const", "fq.mul_sub_mul_const")
 
 
 def report_row(name, rows, launches):
@@ -792,7 +808,7 @@ def main() -> int:
     for entry, regs, spills in kernel_stats.ptxas_report(build_log):
         log(f"  ptxas {entry}: {regs} registers ({kernel_stats.blocks_per_sm(regs)} blocks of 128 "
             f"threads fit an SM); {spills}")
-    for line in kernel_stats.point_sass_lines(lib_path):
+    for line in kernel_stats.product_sass_lines(lib_path):
         log(f"  sass {line}")
     log(f"  nvcc wall time per process: {nvcc_s}; the sources' compiles add up to "
         f"{sum(v for k, v in nvcc_s.items() if k != 'link'):.1f} s")

@@ -8,8 +8,8 @@ __host__ __device__, so the exact code they inline is checked here.  The
 point formulas (rcb_padd / rcb_pdbl) run here over the host policies: Fq
 for G1, Fq2Pair for G2, which computes each coefficient with K6's per-thread
 fq2_mul_half; only K6's exchange between the two threads of a point
-(__shfl_xor_sync) and the card's carry-chain product (mont_mul_cc) are
-left to the card.
+(__shfl_xor_sync) and the card's carry-chain forms (mont_mul_cc, redc_cc,
+mul_wide_acc_cc) are left to the card.
 """
 
 import shutil
@@ -77,19 +77,26 @@ void g2_op(const char* op, const uint32_t* in, uint32_t* out) {
   memcpy(out, &r, sizeof r);
 }
 
-// consts: the round constants, then the MDS matrix (Montgomery elements).
+// consts: K5's two buffers, c then m (Montgomery elements); "dot" takes
+// t lanes then t constants from the record and reduces their sum once.
 template <int T>
-void poseidon_op(const uint32_t* consts, const uint32_t* in, uint32_t* out) {
+void poseidon_op(const char* op, const uint32_t* consts, const uint32_t* in, uint32_t* out) {
   uint32_t s[T][NL];
   memcpy(s, in, sizeof s);
-  poseidon_permute<T>(s, consts, consts + (POSEIDON_RF + poseidon_rp(T)) * T * NL);
+  if (!strcmp(op, "dot")) {
+    poseidon_dot<T>(out, in + T * NL, s);
+    return;
+  }
+  poseidon_permute<T>(s, consts, consts + (POSEIDON_RF * T + poseidon_rp(T)) * NL);
   memcpy(out, s, sizeof s);
 }
 
-void poseidon_t(int t, const uint32_t* consts, const uint32_t* in, uint32_t* out) {
-  if (t == 2) poseidon_op<2>(consts, in, out);
-  else if (t == 3) poseidon_op<3>(consts, in, out);
-  else if (t == 17) poseidon_op<17>(consts, in, out);
+void poseidon_t(const char* op, int t, const uint32_t* consts, const uint32_t* in, uint32_t* out) {
+  if (t == 2) poseidon_op<2>(op, consts, in, out);
+  else if (t == 3) poseidon_op<3>(op, consts, in, out);
+  else if (t == 5) poseidon_op<5>(op, consts, in, out);
+  else if (t == 9) poseidon_op<9>(op, consts, in, out);
+  else if (t == 17) poseidon_op<17>(op, consts, in, out);
   else { fprintf(stderr, "bad width %d\n", t); exit(2); }
 }
 
@@ -106,7 +113,8 @@ int main(int argc, char** argv) {
   while (fread(in.data(), 4, in_words, stdin) == (size_t)in_words) {
     if (!strcmp(field, "fr")) field_op<Fr>(op, in.data(), out.data());
     else if (!strcmp(field, "fq")) field_op<Fq>(op, in.data(), out.data());
-    else if (!strcmp(field, "poseidon")) poseidon_t(atoi(op), consts.data(), in.data(), out.data());
+    else if (!strcmp(field, "poseidon")) poseidon_t("permute", atoi(op), consts.data(), in.data(), out.data());
+    else if (!strcmp(field, "poseidon_dot")) poseidon_t("dot", atoi(op), consts.data(), in.data(), out.data());
     else if (!strcmp(field, "fq2")) fq2_op(op, in.data(), out.data());
     else if (!strcmp(field, "g2")) g2_op(op, in.data(), out.data());
     else g1_op(op, in.data(), out.data());
@@ -346,21 +354,36 @@ def test_g2_padd_pdbl(harness):
     assert _g2_key(_g2_affine(harness("g2", "pdbl", words, 48))) == _g2_key(g2_add(a, a) for a in base)
 
 
-@pytest.mark.parametrize("t", [2, 3, 17])
+@pytest.mark.parametrize("t", [2, 3, 5, 9, 17])
 def test_poseidon_permutation(harness, tmp_path, t):
-    """poseidon.cuh's permutation (K5's per-thread body) against the
-    reference, on an all-(p-1) state, the zero state and random states."""
-    from zkfl_tpu.poseidon.grain import poseidon_params
+    """poseidon.cuh's optimized permutation (K5's per-thread body) on the
+    optimized constants against the JAX package's reference, on an
+    all-(p-1) state, the zero state and random states."""
     from zkfl_tpu.poseidon.reference import poseidon_permutation
+    from zkfl_tpu_torch.poseidon.optimized import optimized_params
 
     rr = FR_CONSTS.mont_r
     rinv = pow(rr, -1, FR)
-    C, M = poseidon_params(t)
+    c, m = optimized_params(t).kernel_buffers()
     consts = tmp_path / "consts.bin"
-    consts.write_bytes(_words([v * rr % FR for v in C + [x for row in M for x in row]]).tobytes())
+    consts.write_bytes(_words([v * rr % FR for v in c + m]).tobytes())
     states = [[FR - 1] * t, [0] * t] + [_rand(FR, t)[:t] for _ in range(3)]
     flat = [v * rr % FR for st in states for v in st]
     out = harness("poseidon", str(t), _words(flat).reshape(len(states), 8 * t), 8 * t, consts)
     got = [v * rinv % FR for v in _ints(out.reshape(-1, 8))]
     want = [v for st in states for v in poseidon_permutation(st)]
     assert got == want
+
+
+@pytest.mark.parametrize("t", [2, 3, 5, 9, 17])
+def test_poseidon_lazy_dot(harness, t):
+    """One reduction of a t-term sum of products (the mix's lanes): the
+    worst case, every lane and constant p - 1, comes out canonical, and so do
+    random sums."""
+    rinv = pow(FR_CONSTS.mont_r, -1, FR)
+    rows = [[FR - 1] * 2 * t, [0] * 2 * t, [1] * 2 * t] + [_rand(FR, 2 * t)[:2 * t] for _ in range(6)]
+    recs = np.stack([_words(row).reshape(-1) for row in rows])
+    got = _ints(harness("poseidon_dot", str(t), recs, 8))
+    want = [sum(x * y for x, y in zip(row[:t], row[t:])) * rinv % FR for row in rows]
+    assert got == want
+    assert got[0] == t * (FR - 1) ** 2 * rinv % FR

@@ -203,38 +203,28 @@ __device__ __forceinline__ void cond_sub_cc(uint32_t r[NL], const uint32_t t[NL]
   for (int j = 0; j < NL; ++j) r[j] = under ? t[j] : d[j];
 }
 
-// a * b * R^-1 mod p for a < p, b < 2^256; canonical output, the same
-// integer as mont_mul's.
-template <class F>
-__device__ __forceinline__ void mont_mul_cc(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
-  uint32_t x[NL + 1], y[NL], pend = 0;
+// T /= 2^32 in the even/odd accumulator: X[1] -> P, Y -> X, X[2..8] -> Y.
+__device__ __forceinline__ void cc_shift(uint32_t x[NL + 1], uint32_t y[NL], uint32_t& pend) {
+  pend = x[1];
+  uint32_t nx[NL + 1], ny[NL];
 #pragma unroll
-  for (int j = 0; j < NL; ++j) x[j] = y[j] = 0;
-  x[NL] = 0;
+  for (int j = 0; j < NL; ++j) nx[j] = y[j];
+  nx[NL] = 0;
 #pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    mac_odd(y, x[0], pend, a[1], a[3], a[5], a[7], b[i]);
-    mac_even(x, a[0], a[2], a[4], a[6], b[i]);
-    const uint32_t m = x[0] * F::NP0;
-    mac_even(x, F::p(0), F::p(2), F::p(4), F::p(6), m);  // x[0] becomes 0
-    mac_odd(y, x[0], 0u, F::p(1), F::p(3), F::p(5), F::p(7), m);
-    // T /= 2^32: X[1] -> P, Y -> X, X[2..8] -> Y
-    pend = x[1];
-    uint32_t nx[NL + 1], ny[NL];
+  for (int j = 0; j < NL - 1; ++j) ny[j] = x[j + 2];
+  ny[NL - 1] = 0;
 #pragma unroll
-    for (int j = 0; j < NL; ++j) nx[j] = y[j];
-    nx[NL] = 0;
-#pragma unroll
-    for (int j = 0; j < NL - 1; ++j) ny[j] = x[j + 2];
-    ny[NL - 1] = 0;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-      x[j] = nx[j];
-      y[j] = ny[j];
-    }
-    x[NL] = nx[NL];
+  for (int j = 0; j < NL; ++j) {
+    x[j] = nx[j];
+    y[j] = ny[j];
   }
-  // T = X + Y 2^32 + P < 2p
+  x[NL] = nx[NL];
+}
+
+// r = X + Y 2^32 + P reduced, for X + Y 2^32 + P < 2p.
+template <class F>
+__device__ __forceinline__ void cc_finish(uint32_t r[NL], const uint32_t x[NL + 1], const uint32_t y[NL],
+                                          uint32_t pend) {
   uint32_t t[NL];
   asm("add.cc.u32  %0, %8, %16;\n\t"
       "addc.cc.u32 %1, %9, %17;\n\t"
@@ -250,17 +240,204 @@ __device__ __forceinline__ void mont_mul_cc(uint32_t r[NL], const uint32_t a[NL]
         "r"(pend), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]), "r"(y[5]), "r"(y[6]));
   cond_sub_cc<F>(r, t);
 }
+
+// a * b * R^-1 mod p for a < p, b < 2^256; canonical output, the same
+// integer as mont_mul's.
+template <class F>
+__device__ __forceinline__ void mont_mul_cc(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+  uint32_t x[NL + 1], y[NL], pend = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) x[j] = y[j] = 0;
+  x[NL] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    mac_odd(y, x[0], pend, a[1], a[3], a[5], a[7], b[i]);
+    mac_even(x, a[0], a[2], a[4], a[6], b[i]);
+    const uint32_t m = x[0] * F::NP0;
+    mac_even(x, F::p(0), F::p(2), F::p(4), F::p(6), m);  // x[0] becomes 0
+    mac_odd(y, x[0], 0u, F::p(1), F::p(3), F::p(5), F::p(7), m);
+    cc_shift(x, y, pend);
+  }
+  cc_finish<F>(r, x, y, pend);  // T = X + Y 2^32 + P < 2p
+}
+
+// a * R^-1 mod p for any a < 2^256 (Montgomery reduction alone, the
+// product by 1 without its multiplies): the loop of mont_mul_cc with T = a
+// at the start and no a * b_i rows, the pending word added in the m * p
+// chain.  T < 2^256 + 2^32 p < 2^288 within the first step, below
+// 2^224 + p after it, and at the end (a + m p) / R < p + 1.
+template <class F>
+__device__ __forceinline__ void redc_cc(uint32_t r[NL], const uint32_t a[NL]) {
+  uint32_t x[NL + 1], y[NL], pend = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    x[j] = a[j];
+    y[j] = 0;
+  }
+  x[NL] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const uint32_t m = (x[0] + pend) * F::NP0;
+    mac_even(x, F::p(0), F::p(2), F::p(4), F::p(6), m);
+    mac_odd(y, x[0], pend, F::p(1), F::p(3), F::p(5), F::p(7), m);  // x[0] becomes 0
+    cc_shift(x, y, pend);
+  }
+  cc_finish<F>(r, x, y, pend);
+}
+
+// a[0..7] += b[0..7]; returns the carry out.  The carry lands in a tied
+// operand that starts at 0, and the asm takes no untied input besides b:
+// where a is a compile-time 0 (a sum's first term), the compiler may give
+// an untied input of the same value the register of a tied one, which the
+// chain overwrites before the last instruction reads it.
+__device__ __forceinline__ uint32_t add8_co(uint32_t a[NL], const uint32_t b[NL]) {
+  uint32_t c = 0;
+  asm("add.cc.u32  %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32    %8, %8, 0;"
+      : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+r"(a[4]), "+r"(a[5]), "+r"(a[6]),
+        "+r"(a[7]), "+r"(c)
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  return c;
+}
+
+// a[0..7] += b[0..7] + c for c in {0, 1}; the carry out is dropped (the
+// callers' bounds make it 0).
+__device__ __forceinline__ void add8_ci(uint32_t a[NL], const uint32_t b[NL], uint32_t c) {
+  asm("add.cc.u32  %8, %8, 0xffffffff;\n\t"  // sets the carry flag iff c != 0
+      "addc.cc.u32 %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.u32    %7, %7, %16;"
+      : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+r"(a[4]), "+r"(a[5]), "+r"(a[6]),
+        "+r"(a[7]), "+r"(c)
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+}
+
+// acc[0..15] += a * b (512 bits), for acc + a * b < 2^512.  The product is
+// built fresh on even/odd columns (E at word positions 0..15, O at 1..16):
+// before row i, E holds a_even * (b_0..b_i-1) < 2^(256 + 32 i), which fits
+// words 0..i+7, so row i's carry into word i + 8 never carries further;
+// likewise O.  Then two add chains put E and O 2^32 into acc (O[16] is 0:
+// O 2^32 <= a * b < 2^512).
+__device__ __forceinline__ void mul_wide_acc_cc(uint32_t acc[2 * NL], const uint32_t a[NL],
+                                                const uint32_t b[NL]) {
+  uint32_t e[2 * NL], o[2 * NL + 1];
+#pragma unroll
+  for (int j = 0; j < 2 * NL; ++j) e[j] = o[j] = 0;
+  o[2 * NL] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    mac_even(e + i, a[0], a[2], a[4], a[6], b[i]);
+    mac_even(o + i + 1, a[1], a[3], a[5], a[7], b[i]);
+  }
+  add8_ci(acc + NL, e + NL, add8_co(acc, e));
+  add8_ci(acc + NL, o + NL, add8_co(acc, o));
+}
 #endif  // __CUDA_ARCH__
 
 // The Fq product of the point formulas (K4, K6): the carry-chain form on
 // the card, the CIOS form above on the host, where g++ checks the formulas.
-// K1-K3 and K5 keep mont_mul on both.
 ZK_FN void fq_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
 #if defined(__CUDA_ARCH__)
   mont_mul_cc<Fq>(r, a, b);
 #else
   mont_mul<Fq>(r, a, b);
 #endif
+}
+
+// The product of K1 and K5, for a < 2^256 and b < p: the carry-chain form
+// on the card (operands swapped to meet its a < p), CIOS on the host.  K2
+// and K3 keep mont_mul on both.
+template <class F>
+ZK_FN void field_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+#if defined(__CUDA_ARCH__)
+  mont_mul_cc<F>(r, b, a);
+#else
+  mont_mul<F>(r, a, b);
+#endif
+}
+
+ZK_FN void fr_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) { field_mul<Fr>(r, a, b); }
+
+// a * R^-1 mod p for any a < 2^256, canonical: redc_cc on the card, the
+// CIOS product by 1 on the host.
+template <class F>
+ZK_FN void field_redc(uint32_t r[NL], const uint32_t a[NL]) {
+#if defined(__CUDA_ARCH__)
+  redc_cc<F>(r, a);
+#else
+  uint32_t one[NL];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) one[j] = j == 0 ? 1u : 0u;
+  mont_mul<F>(r, a, one);
+#endif
+}
+
+// r = t - p when t >= p, else t, for any t < 2^256 (t >= 2p stays >= p).
+template <class F>
+ZK_FN void sub_p_if_geq(uint32_t r[NL], const uint32_t t[NL]) {
+#if defined(__CUDA_ARCH__)
+  cond_sub_cc<F>(r, t);
+#else
+  cond_sub<F>(r, t, 0u);
+#endif
+}
+
+// acc[0..15] += a * b, the 512-bit product unreduced, for acc + a * b < 2^512.
+ZK_FN void mul_wide_acc(uint32_t acc[2 * NL], const uint32_t a[NL], const uint32_t b[NL]) {
+#if defined(__CUDA_ARCH__)
+  mul_wide_acc_cc(acc, a, b);
+#else
+  uint32_t w[2 * NL] = {0};
+  for (int i = 0; i < NL; ++i) {
+    uint64_t c = 0;
+    for (int j = 0; j < NL; ++j) {
+      c += (uint64_t)a[j] * b[i] + w[i + j];
+      w[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    w[i + NL] = (uint32_t)c;
+  }
+  uint64_t c = 0;
+  for (int j = 0; j < 2 * NL; ++j) {
+    c += (uint64_t)acc[j] + w[j];
+    acc[j] = (uint32_t)c;
+    c >>= 32;
+  }
+#endif
+}
+
+// One Montgomery reduction of a sum of products, acc < t p^2 for NSUB =
+// ceil(t p / R) (see poseidon_subs): acc R^-1 = lo R^-1 + hi for
+// acc = lo + hi R, lo R^-1 < p after field_redc and hi < t p^2 / R, so
+// u = lo R^-1 + hi < p (1 + t p / R) < 2^256 and NSUB subtractions of p
+// bring it below p.
+template <class F, int NSUB>
+ZK_FN void redc_wide(uint32_t r[NL], const uint32_t acc[2 * NL]) {
+  field_redc<F>(r, acc);
+#if defined(__CUDA_ARCH__)
+  add8_ci(r, acc + NL, 0u);
+#else
+  uint64_t c = 0;
+  for (int j = 0; j < NL; ++j) {
+    c += (uint64_t)r[j] + acc[NL + j];
+    r[j] = (uint32_t)c;
+    c >>= 32;
+  }
+#endif
+#pragma unroll
+  for (int k = 0; k < NSUB; ++k) sub_p_if_geq<F>(r, r);
 }
 
 // a^2 * R^-1 mod p: the Montgomery product of a with itself, as

@@ -5,13 +5,18 @@
 //   _k_from_mont (:370), _k_to_mont (:374), _k_mul_sub_mul_const (:396) and
 //   the mont_mul_const kernel (:571), for Fr (FRK) and Fq (FQK).
 //
-// Bound: 32-bit integer multiply-adds.  A mont_mul is 128 IMAD.WIDE plus
-// carries per element and moves 3 x 32 bytes, so at main-path lane counts it
-// is compute-bound; the tensor cores do not apply to carry chains.  Design:
-// one thread per element, the whole op fused in registers (no partial
-// products in memory, as the Pallas kernel kept them in VMEM); limb-major
-// layout so neighbouring threads read neighbouring words; constants (R^2 for
-// to_mont, k for the two const ops) are kernel arguments.
+// Bound: bytes.  An op reads one to three elements and writes one (64-128
+// bytes a lane); its products are at most 2 x 136 32-bit multiply-adds a
+// lane, which at the main path's 2^18 lanes take less than a third of the
+// memory time at the card's integer rate.  Instruction issue is the other
+// limit: the C-form CIOS product issued 624+ SASS instructions, about as
+// long as the memory time, so every product here is the PTX carry-chain
+// form (bn254.cuh field_mul, about 300 instructions; field_redc for
+// from_mont, the reduction without the multiplies).  add and sub stay C.
+// Design: one thread per element, the whole op fused in registers (no
+// partial products in memory, as the Pallas kernel kept them in VMEM);
+// limb-major layout so neighbouring threads read neighbouring words;
+// constants (R^2 for to_mont, k for the two const ops) are kernel arguments.
 #include <cuda_runtime.h>
 
 #include "bn254.cuh"
@@ -49,7 +54,7 @@ __global__ void field_ew_kernel(const uint32_t* __restrict__ a, const uint32_t* 
     load(x, a, i, n);
     if constexpr (OP == MONT_MUL) {
       load(y, b, i, n);
-      zk::mont_mul<F>(r, x, y);
+      zk::field_mul<F>(r, x, y);
     } else if constexpr (OP == ADD) {
       load(y, b, i, n);
       zk::add<F>(r, x, y);
@@ -57,19 +62,21 @@ __global__ void field_ew_kernel(const uint32_t* __restrict__ a, const uint32_t* 
       load(y, b, i, n);
       zk::sub<F>(r, x, y);
     } else if constexpr (OP == TO_MONT) {
-      zk::to_mont<F>(r, x);
+#pragma unroll
+      for (int j = 0; j < zk::NL; ++j) y[j] = F::r2(j);
+      zk::field_mul<F>(r, x, y);
     } else if constexpr (OP == FROM_MONT) {
-      zk::from_mont<F>(r, x);
+      zk::field_redc<F>(r, x);
     } else if constexpr (OP == MONT_SQR) {
-      zk::mont_sqr<F>(r, x);
+      zk::field_mul<F>(r, x, x);
     } else if constexpr (OP == MONT_MUL_CONST) {
-      zk::mont_mul<F>(r, x, k.v);
+      zk::field_mul<F>(r, x, k.v);
     } else {  // MUL_SUB_MUL_CONST: (a*b - c) * k
       load(y, b, i, n);
-      zk::mont_mul<F>(r, x, y);
+      zk::field_mul<F>(r, x, y);
       load(y, c, i, n);
       zk::sub<F>(r, r, y);
-      zk::mont_mul<F>(r, r, k.v);
+      zk::field_mul<F>(r, r, k.v);
     }
     store(out, r, i, n);
   }

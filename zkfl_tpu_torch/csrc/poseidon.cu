@@ -3,22 +3,36 @@
 // Replaces zkfl_tpu/ops/poseidon_pallas.py _round_body (:85), which
 // _round_call (:122-143) wraps in one pallas_call per round and
 // _permute_fn (:146-180) replays 65-76 times through a lax.scan.  Here one
-// launch runs the whole permutation (poseidon.cuh): at the port's batch
-// sizes the host side of a launch costs more than a field kernel, so 65-76
-// launches per batch would cost more than the work.
+// launch runs the whole permutation, in the optimized form of
+// poseidon.cuh: at the port's batch sizes the host side of a launch costs
+// more than a field kernel, so 65-76 launches per batch would cost more
+// than the work.
 //
-// Bound: 32-bit integer multiply-adds.  A width-t permutation is
-// R_F * (3t + t^2) + R_P * (3 + t^2) Montgomery products (828 at t = 3,
-// 22,576 at t = 17) on 2 * t * 32 bytes of input and output.  Design: one
-// thread per hash; its state (t x 8 words, 136 at t = 17) and the mix's
-// scratch sit in the thread's local memory, read 8 words per product
-// against some 200 integer instructions of the product itself, which
-// keeps the code one product long and the registers few (many warps per
-// SM to hide the multiply chains' latency).  The template on t fixes the
-// trip counts.  Round constants and the MDS matrix are read from a device
-// buffer that the wrapper builds once per t (all widths together exceed
-// the 64 KB __constant__ bank); all threads of a warp read the same
-// constant, one broadcast load.
+// Bound: 32-bit integer multiply-adds, by far.  The fewest of a correct
+// design (chip_smoke.py poseidon_madds): 456,416 a permutation at t = 17,
+// 47,360 at t = 2, 65,400 at t = 3, on 2 t 32 bytes of input and output.
+// What the card spends is instruction issue: each 32 x 32 -> 64-bit
+// multiply-add is one IMAD.WIDE.U32(.X), and the carries, adds and selects
+// around it about as many again.  What the design does about it:
+//  - the optimized rounds (no t x t mix in a partial round, 2t - 1
+//    products there instead of t^2);
+//  - one Montgomery reduction per mixed lane, after a sum of t 512-bit
+//    products left unreduced (bn254.cuh mul_wide_acc, redc_wide), as
+//    _round_body does;
+//  - every product on PTX carry chains with even/odd columns (bn254.cuh
+//    field_mul): about 297 SASS instructions per product against 600-667
+//    for the C form (kernel_stats.py).
+// Where the state lives, from ptxas's report (-Xptxas -v) per width: t = 2
+// and 3 keep it in registers with their lane loops unrolled (78 and 108
+// registers, no stack frame, no spill); wider states stay in the thread's
+// local memory with the lane loops rolled (66-68 registers, a stack frame
+// of 2 t 32 bytes for the state and the full rounds' scratch, no spill): at
+// t = 17 the state alone is 136 words.  One thread per state, 128 a block;
+// local memory is cached in L1, and the same state in shared memory (a
+// 140-word stride per thread, 3 blocks a SM) was tried and not kept.  The
+// constants are one device buffer per t read by broadcast (all threads of a
+// warp read the same element): 96.8 KB at t = 17, more than the 64 KB
+// __constant__ bank.
 //
 // Layout: the public int32 [8, n, t] limb-major tensor (limb, hash, lane),
 // read and written in place of a transposed copy: the kernel is bound by
@@ -35,15 +49,16 @@ template <int T>
 __global__ void __launch_bounds__(THREADS)
     poseidon_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                     const uint32_t* __restrict__ c, const uint32_t* __restrict__ m, long long n) {
+  constexpr int U = zk::poseidon_lane_unroll<T>();
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    uint32_t s[T][zk::NL];
-#pragma unroll 1
+    alignas(16) uint32_t s[T][zk::NL];
+#pragma unroll(U)
     for (int j = 0; j < T; ++j)
 #pragma unroll
       for (int w = 0; w < zk::NL; ++w) s[j][w] = in[(w * n + i) * T + j];
     zk::poseidon_permute<T>(s, c, m);
-#pragma unroll 1
+#pragma unroll(U)
     for (int j = 0; j < T; ++j)
 #pragma unroll
       for (int w = 0; w < zk::NL; ++w) out[(w * n + i) * T + j] = s[j][w];
@@ -63,8 +78,8 @@ int launch(const uint32_t* in, uint32_t* out, const uint32_t* c, const uint32_t*
 
 }  // namespace
 
-// in, out: int32 [8, n, t] Montgomery states; c: (R_F + R_P(t)) * t and
-// m: t * t Montgomery elements of 8 words each.
+// in, out: int32 [8, n, t] Montgomery states; c, m: the optimized form's
+// constant buffers (poseidon.cuh), Montgomery elements of 8 words each.
 extern "C" int zk_poseidon(int t, const void* in, void* out, const void* c, const void* m,
                            long long n, void* stream) {
   const auto* pi = static_cast<const uint32_t*>(in);

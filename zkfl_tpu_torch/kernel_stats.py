@@ -4,9 +4,10 @@ entry function, and SASS instruction counts from cuobjdump.
     python -m zkfl_tpu_torch.kernel_stats [LIB]
 
 prints ptxas's report (from the build.log beside LIB) and the SASS counts of
-the point kernels in LIB, per Fq product (default LIB: this checkout's
-build, built first if needed).  Needs the CUDA toolkit (nvcc, cuobjdump);
-no card.  chip_smoke.py prints the same report in its build phase.
+the product kernels in LIB, per field product: the point kernels (K4, K6)
+per Fq product, K1 per Fr or Fq product, K5 per Fr product (default LIB:
+this checkout's build, built first if needed).  Needs the CUDA toolkit
+(nvcc, cuobjdump); no card.  chip_smoke.py prints the same report in its build phase.
 """
 
 from __future__ import annotations
@@ -24,6 +25,12 @@ from . import backend
 # thread; K6: one Fq2 coefficient a thread, 2 Fq products per Fq2 product;
 # pdbl's body is one doubling of its loop).
 PRODUCTS = {"g1_padd": 14, "g1_pdbl": 9, "g2_padd": 28, "g2_pdbl": 18}
+# K1 op (csrc/field_ew.cu enum Op) -> products a thread; from_mont's
+# reduction counts as one.  add (1) and sub (2) have none.
+FIELD_PRODUCTS = {0: 1, 3: 1, 4: 1, 5: 1, 6: 2, 7: 1}
+# Multiply-adds of a 512-bit product and of a reduction, in products
+# (136 multiply-adds): K5 inlines both, and together they make one.
+WIDE, REDC = 64 / 136, 72 / 136
 ENTRIES = ("field_ew", "butterfly", "normalize_raw", "g1_padd", "g1_pdbl", "g2_padd", "g2_pdbl",
            "poseidon")
 REGS_PER_SM = 65536
@@ -93,16 +100,51 @@ def sass_counts(binary: Path) -> dict:
     return counts
 
 
-def point_sass_lines(binary: Path) -> list:
-    """One line per point kernel: SASS instructions in all and per Fq product."""
-    lines = []
+def poseidon_reg_max_t() -> int:
+    """poseidon.cuh's POSEIDON_REG_MAX_T: the widest K5 state kept in
+    registers with its lane loops unrolled."""
+    src = (backend.CSRC_DIR / "poseidon.cuh").read_text()
+    return int(re.search(r"POSEIDON_REG_MAX_T = (\d+);", src).group(1))
+
+
+def poseidon_products(t: int, reg_max: int) -> float:
+    """Products in K5's code for width t (each inlined copy once): the two
+    inlined full rounds (t S-boxes of 3 products, t^2 wide products, t
+    reductions; with the lane loops rolled, one of each) and the partial
+    round (an S-box, t wide products and a reduction for lane 0, t - 1
+    products for the others; rolled, one of each)."""
+    lanes = t if t <= reg_max else 1
+    full = 3 * lanes + lanes * lanes * WIDE + lanes * REDC
+    partial = 3 + lanes * WIDE + REDC + (t - 1 if t <= reg_max else 1)
+    return 2 * full + partial
+
+
+def products_of(name: str, reg_max: int):
+    """(products a thread, field) of a kernel entry, or None."""
+    base = name.split(" [")[0]
+    if base in PRODUCTS:
+        return PRODUCTS[base], "Fq"
+    m = re.fullmatch(r"field_ew<(F[rq]), op (\d)>", base)
+    if m and int(m.group(2)) in FIELD_PRODUCTS:
+        return FIELD_PRODUCTS[int(m.group(2))], m.group(1)
+    m = re.fullmatch(r"poseidon<t=(\d+)>", base)
+    if m:
+        return poseidon_products(int(m.group(1)), reg_max), "Fr"
+    return None
+
+
+def product_sass_lines(binary: Path) -> list:
+    """One line per kernel entry with field products (K1, K4, K5, K6): SASS
+    instructions in all and per product."""
+    lines, reg_max = [], poseidon_reg_max_t()
     for name, c in sorted(sass_counts(binary).items()):
-        k = PRODUCTS.get(name.split(" [")[0])
-        if k:
+        got = products_of(name, reg_max)
+        if got:
+            k, field = got
             lines.append(f"{name}: {c['all']} SASS instructions, {c['imad']} IMAD, "
-                         f"{c['iadd3']} IADD3, {c['shfl']} SHFL; per Fq product "
+                         f"{c['iadd3']} IADD3, {c['shfl']} SHFL; per {field} product "
                          f"{c['all'] / k:.1f} instructions, {c['imad'] / k:.1f} IMAD "
-                         f"({k} products a thread)")
+                         f"({k:g} products a thread)")
     return lines
 
 
@@ -112,7 +154,7 @@ def main(argv=None) -> int:
     lib = Path(ap.parse_args(argv).lib or backend.build())
     lines = [f"{entry}: {regs} registers ({blocks_per_sm(regs)} blocks of {THREADS} fit an SM); "
              f"{spills}" for entry, regs, spills in ptxas_report((lib.parent / "build.log").read_text())]
-    print("\n".join(lines + point_sass_lines(lib)))
+    print("\n".join(lines + product_sass_lines(lib)))
     return 0
 
 

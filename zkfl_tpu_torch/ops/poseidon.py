@@ -4,7 +4,8 @@
 States are int32 ``[8, batch, t]`` limb-major tensors in Montgomery form:
 zkfl_tpu's ``[batch, t, 16]`` behind the port's leading limb axis.
 ``PoseidonKernel(t).permute`` launches K5 (csrc/poseidon.cu, the whole
-permutation in one launch) for a CUDA tensor, counted in
+permutation in one launch, in the optimized form of
+zkfl_tpu_torch/poseidon/optimized.py) for a CUDA tensor, counted in
 ``backend.LAUNCHES`` as ``"fr.poseidon"``, and runs ``permute_plain`` for a
 CPU tensor.  The plain version follows zkfl_tpu's XLA path
 (ops/poseidon.py:48-78) with the plain field arithmetic only, so it launches
@@ -25,6 +26,7 @@ from .. import backend
 from ..field.bn254 import FR
 from ..field.limbs import N_LIMBS
 from ..poseidon.grain import R_F, partial_rounds, poseidon_params
+from ..poseidon.optimized import optimized_params
 from .limb_kernels import FRK, _check, join16, on_cpu, split16
 
 
@@ -55,12 +57,13 @@ class PoseidonKernel:
         self._device_consts = {}
 
     def consts(self, device: torch.device):
-        """The kernel's constant buffers on ``device``: element-major int32
-        [rounds * t, 8] and [t * t, 8], built once per device."""
+        """K5's constant buffers on ``device``, the optimized form's c and m
+        (``OptimizedParams.kernel_buffers``): element-major int32 [n, 8]
+        Montgomery elements, built once per device."""
         bufs = self._device_consts.get(device)
         if bufs is None:
-            bufs = tuple(torch.from_numpy(np.ascontiguousarray(x.T)).to(device)
-                         for x in (self.C, self.M))
+            bufs = tuple(torch.from_numpy(np.ascontiguousarray(FRK.pack(x).T)).to(device)
+                         for x in optimized_params(self.t).kernel_buffers())
             self._device_consts[device] = bufs
         return bufs
 
