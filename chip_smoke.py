@@ -8,14 +8,16 @@ nothing of zkfl_tpu.  Phases (any failure raises and exits non-zero):
   1. probe: card name, power limit and SM clock, CUDA / nvcc / Triton versions;
   2. build the six CUDA kernels (K1-K6) from zkfl_tpu_torch/csrc; ptxas's
      registers and spills per entry, SASS instructions per field product of
-     K1, K4, K5 and K6 (cuobjdump);
+     K1, K4, K5 and K6 and per lane of K3 (cuobjdump);
   3. every kernel op against its plain torch version on the same random
      canonical inputs (exact equality): the field ops at 2^18 lanes, the G1
      ops at 2^17, the G2 ops at 3 x 2^14 (the G2 MSM's widest launch), both
      doublings also 8 at a time, with identity, P + P, P + (-P) and
      projective representatives whose coordinates have the limbs of p - 1
-     checked against the host curve too, the Poseidon permutation at every
-     width t = 2..17 (2^12 states at t = 2, 3, 6, 17, 2^8 at the others);
+     checked against the host curve too, normalize_raw also on column sums
+     whose value is k p and k p - 1 up to the largest k, the Poseidon
+     permutation at every width t = 2..17 (2^12 states at t = 2, 3, 6, 17,
+     2^8 at the others);
      the card time of each (over input sets larger than the L2) and the
      wall time per call;
   4. MICRO_CONFIG balance proof on TorchEngine == HostEngine's, bit for
@@ -23,7 +25,8 @@ nothing of zkfl_tpu.  Phases (any failure raises and exits non-zero):
   5. one REFERENCE_CONFIG FL round through the port's RoundProver and
      run_round: 3 clients batched, 9 proofs verified by the native
      verifier, masks cancel; every kernel of the path launched, and no
-     fq.add / fq.sub / fq.mont_mul; each G1 and G2 MSM's wall time;
+     fq.add / fq.sub / fq.mont_mul; each G1 and G2 MSM's wall time, and the
+     card time of its point kernels, its launches replayed at their shapes;
   6. a client's dataset commitment on the card: 2^20 samples of 16 features
      and a label, VectorHash per sample and a depth-20 Poseidon Merkle tree;
      each K5 launch of it timed by CUDA events in that run, and 2^12 of its
@@ -62,6 +65,7 @@ MONT = 2 * 8 * 8 + 8     # 32-bit multiply-adds of one CIOS Montgomery product
 SQR = 8 * 9 // 2 + 8 * 8 + 8  # of a Montgomery squaring (each cross product once)
 REDC = 8 * 8 + 8         # of a Montgomery reduction alone (a product by 1)
 WIDE = 8 * 8             # of a 512-bit product left unreduced
+NORMALIZE = 8 + 4 + 8    # of normalize_raw: fold top (R mod p), the 64-bit quotient, q p
 SLEEP_CYCLES = 10**8     # about 50 ms of the card's clock
 ROTATE = 8               # input sets per timed op: >= 112 MB between reuses
 
@@ -162,11 +166,16 @@ def poseidon_madds(t: int) -> int:
 # Point op -> (32-bit multiply-adds, bytes read + written) per point: the
 # fewest of a correct design of RCB15 alg. 7 (add: 12 products and 2 by b3)
 # and 9 (double: 6 products, 2 squarings and 1 by b3).  G1: b3 = 9 takes
-# additions.  G2: an Fq2 product is 3 Fq products (Karatsuba), a squaring 2,
-# a product by b3 = (9/82)(9 - u) 2.
+# additions.  G2, with lazy reduction: an Fq2 product is 3 products left
+# unreduced and 2 reductions (Karatsuba), a sum of two Fq2 products 6 and 2,
+# a squaring 2 Fq products, a product by b3 = (9/82)(9 - u) additions and 2
+# Fq products.  G2 add: 6 products, 3 sums of two (X3, Y3, Z3) and 2 by
+# b3 = 4,144; double: 4 products, 2 squarings, 1 sum of two (Y3) and 1 by
+# b3 = 2,688.
+FQ2_MUL, FQ2_MUL_ADD = 3 * WIDE + 2 * REDC, 6 * WIDE + 2 * REDC
 POINT_COST = {"g1.padd": (12 * MONT, 288), "g1.pdbl": (6 * MONT + 2 * SQR, 192),
-              "g2.padd": ((12 * 3 + 2 * 2) * MONT, 576),
-              "g2.pdbl": ((6 * 3 + 2 * 2 + 2) * MONT, 384)}
+              "g2.padd": (6 * FQ2_MUL + 3 * FQ2_MUL_ADD + 2 * 2 * MONT, 576),
+              "g2.pdbl": (4 * FQ2_MUL + 2 * 2 * MONT + FQ2_MUL_ADD + 2 * MONT, 384)}
 
 
 # op ("<field>.<op>", then " t=<width>" or " times=<doublings>") ->
@@ -184,7 +193,7 @@ def op_cost(name: str):
         "mont_mul": (MONT, 96), "mont_sqr": (SQR, 64), "add": (0, 96), "sub": (0, 96),
         "to_mont": (MONT, 64), "from_mont": (REDC, 64), "mont_mul_const": (MONT, 64),
         "mul_sub_mul_const": (2 * MONT, 128), "butterfly": (MONT, 160),
-        "normalize_raw": (REDC + MONT, 96),
+        "normalize_raw": (NORMALIZE, 96),
     }[base.split(".", 1)[1]]
 
 
@@ -230,6 +239,29 @@ def g2_extreme(pt, coord, comp):
     lam = (mu, 0) if c[comp] else (0, mu)
     return tuple(((lam[0] * v[0] - lam[1] * v[1]) % FQ, (lam[0] * v[1] + lam[1] * v[0]) % FQ)
                  for v in xyz)
+
+
+T_MAX = sum((2**63 - 1) << (32 * j) for j in range(8))  # the largest value of 8 int64 column sums
+
+
+def carried_cols(t):
+    """Eight column sums in [0, 2^63) whose carried value sum_j c_j 2^(32 j)
+    is t, for 0 <= t <= T_MAX: t's words directly below 2^256, else T_MAX's
+    columns less the words of T_MAX - t."""
+    if t < 2**256:
+        return [(t >> (32 * j)) & 0xFFFFFFFF for j in range(7)] + [t >> 224]
+    d = T_MAX - t
+    return [2**63 - 1 - ((d >> (32 * j)) & 0xFFFFFFFF) for j in range(7)] + [2**63 - 1 - (d >> 224)]
+
+
+def normalize_edge_cols(p):
+    """int64 [8, m] column sums whose carried values are k p and k p - 1 for
+    k from 1 to the largest the columns can carry: normalize_raw's results
+    0 and p - 1 at the edges of its quotient estimate."""
+    import numpy as np
+
+    ks = (1, 2, 5, 6, 2**31, T_MAX // p - 1, T_MAX // p)
+    return np.array([carried_cols(t) for k in ks for t in (k * p, k * p - 1)], dtype=np.int64).T
 
 
 def g1_limbs(projs, fq):
@@ -390,10 +422,12 @@ def phase_kernels(dev, backend, sm_mhz):
         if F is FRK:
             check("fr.butterfly", F.butterfly, F.butterfly_plain, sets, n)
             col_sets = []
+            edge = torch.from_numpy(normalize_edge_cols(F.p)).to(dev)
             for _ in range(ROTATE):
                 cols = torch.randint(0, 2**40, (8, n), dtype=torch.int64, device=dev, generator=gen)
                 cols[:, 0] = 2**63 - 1
                 cols[:, 1] = 0
+                cols[:, 2:2 + edge.shape[1]] = edge  # T = k p, k p - 1
                 col_sets.append((cols,))
             check("fr.normalize_raw", F.normalize_raw, F.normalize_raw_plain, col_sets, n)
         del sets
@@ -452,39 +486,77 @@ def phase_micro_parity(dev, artifacts):
         f"host {t2 - t1:.2f} s; proofs equal bit for bit and verify")
 
 
+POINT_ENTRIES = ("zk_g1_padd", "zk_g1_pdbl", "zk_g2_padd", "zk_g2_pdbl")
+
+
 class MSMTap:
     """While active, wraps msm._msm_impl (each prove's batched G1 MSM of the
     four families and its G2 MSM): the card synchronised before and after
-    each call, its host wall time, and the point-kernel launches it made."""
+    each call, its host wall time, the point-kernel launches it made, and
+    each of those launches' entry, point count and doubling count."""
 
     def __init__(self, backend):
         from zkfl_tpu_torch.ops import msm
 
         self.backend, self.msm = backend, msm
-        self.calls = []                        # (group, scalar rows, lanes, ms, launches)
+        self.calls = []                        # (group, scalar rows, lanes, ms, launches, shapes)
+        self.shapes = None
 
     def __enter__(self):
         import torch
 
         impl = self.impl = self.msm._msm_impl
+        launch = self.launch = self.backend.launch
 
         def tapped(points, scalars, ops, *args, **kwargs):
             torch.cuda.synchronize()
             before = collections.Counter(self.backend.LAUNCHES)
+            self.shapes = []
             t0 = time.perf_counter()
             out = impl(points, scalars, ops, *args, **kwargs)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             made = collections.Counter(self.backend.LAUNCHES) - before
             group = "g2" if ops is self.msm._G2Ops else "g1"
-            self.calls.append((group, scalars.shape[0], scalars.shape[-1], ms, dict(made)))
+            self.calls.append((group, scalars.shape[0], scalars.shape[-1], ms, dict(made), self.shapes))
+            self.shapes = None
             return out
 
+        def tapped_launch(entry, count_as, *args):
+            if self.shapes is not None and entry in POINT_ENTRIES:
+                padd = entry.endswith("padd")
+                self.shapes.append((entry, args[3] if padd else args[2], 1 if padd else args[3]))
+            launch(entry, count_as, *args)
+
         self.msm._msm_impl = tapped
+        self.backend.launch = tapped_launch
         return self
 
     def __exit__(self, *exc):
         self.msm._msm_impl = self.impl
+        self.backend.launch = self.launch
+
+
+def replay_ms(backend, dev, shapes) -> float:
+    """Card time of one MSM's point kernels: its launches (entry, points,
+    doublings) replayed back to back behind a sleep on the card, on zero
+    inputs of the same shapes (the kernels are branchless, so their time
+    does not depend on the values).  Called outside the counted runs."""
+    import torch
+
+    lib, stream = backend.lib(), backend.stream(dev)
+    words = 48 * max(n for _, n, _ in shapes)
+    p, q, out = (torch.zeros(words, dtype=torch.int32, device=dev) for _ in range(3))
+
+    def run():
+        for entry, n, times in shapes:
+            fn = getattr(lib, entry)
+            rc = (fn(p.data_ptr(), q.data_ptr(), out.data_ptr(), n, stream) if entry.endswith("padd")
+                  else fn(p.data_ptr(), out.data_ptr(), n, times, stream))
+            if rc != 0:
+                raise RuntimeError(f"{entry}: CUDA error {rc} in the replay")
+
+    return kernel_ms(lambda: run(), [()], 1)
 
 
 def phase_round(dev, artifacts, backend):
@@ -518,9 +590,13 @@ def phase_round(dev, artifacts, backend):
     circuits = ("balance", "training", "secagg")
     if [c[0] for c in tap.calls] != ["g1", "g2"] * len(circuits):
         raise AssertionError(f"MSM calls {[c[:3] for c in tap.calls]}, expected G1, G2 per circuit")
-    for k, (group, rows, lanes, ms, made) in enumerate(tap.calls):
+    for k, (group, rows, lanes, ms, made, shapes) in enumerate(tap.calls):
+        counted = sum(v for op, v in made.items() if op.startswith(("g1.", "g2.")))
+        if len(shapes) != counted:
+            raise AssertionError(f"{len(shapes)} point launches tapped, {counted} counted")
         log(f"  {circuits[k // 2]:8s} {group} MSM, {rows} scalar rows x {lanes} points: "
-            f"{ms:9.3f} ms wall; launches {made}")
+            f"{ms:9.3f} ms wall, its point kernels {replay_ms(backend, dev, shapes):7.3f} ms of card "
+            f"time (replayed); launches {made}")
     unfused = {op: launches.get(op, 0) for op in ("fq.add", "fq.sub", "fq.mont_mul")}
     if any(unfused.values()) or not launches.get("g2.padd") or not launches.get("g2.pdbl"):
         raise AssertionError(f"the G2 MSM did not go through K6 alone: {unfused}, "

@@ -7,8 +7,9 @@ their plain torch versions there); their per-element functions are
 __host__ __device__, so the exact code they inline is checked here.  The
 point formulas (rcb_padd / rcb_pdbl) run here over the host policies: Fq
 for G1, Fq2Pair for G2, which computes each coefficient with K6's per-thread
-fq2_mul_half; only K6's exchange between the two threads of a point
-(__shfl_xor_sync) and the card's carry-chain forms (mont_mul_cc, redc_cc,
+ops (fq2_mul_half, fq2_mul_add_half, fq2_sqr_half, fq2_mul_b3_half); only
+K6's exchange between the two threads of a point (__shfl_xor_sync) and the
+card's carry-chain forms (mont_mul_cc, mont_sum2_cc, mont_sum4_cc, redc_cc,
 mul_wide_acc_cc) are left to the card.
 """
 
@@ -61,11 +62,23 @@ void g1_op(const char* op, const uint32_t* in, uint32_t* out) {
   memcpy(out, &r, sizeof r);
 }
 
+// Operands a, b, c, d of 16 words each, as many as the op takes.
 void fq2_op(const char* op, const uint32_t* in, uint32_t* out) {
-  Fq2Pair::El a, b, r;
+  Fq2Pair::El a, b, c, d, r;
   memcpy(&a, in, sizeof a);
+  if (!strcmp(op, "b3_scale")) {
+    for (int j = 0; j < NL; ++j) out[j] = g2_b3_scale(j);
+    return;
+  }
   if (!strcmp(op, "mul")) { memcpy(&b, in + 2 * NL, sizeof b); Fq2Pair{}.mul(r, a, b); }
-  else Fq2Pair{}.mul_b3(r, a);
+  else if (!strcmp(op, "sqr")) Fq2Pair{}.sqr(r, a);
+  else if (!strcmp(op, "mul_b3")) Fq2Pair{}.mul_b3(r, a);
+  else {
+    memcpy(&b, in + 2 * NL, sizeof b); memcpy(&c, in + 4 * NL, sizeof c); memcpy(&d, in + 6 * NL, sizeof d);
+    if (!strcmp(op, "mul_add")) Fq2Pair{}.mul_add(r, a, b, c, d);
+    else if (!strcmp(op, "mul_sub")) Fq2Pair{}.mul_sub(r, a, b, c, d);
+    else { fprintf(stderr, "bad op %s\n", op); exit(2); }
+  }
   memcpy(out, &r, sizeof r);
 }
 
@@ -211,6 +224,31 @@ def test_butterfly_and_normalize_raw(harness):
     assert out == want
 
 
+def test_normalize_raw_quotient_edges(harness):
+    """normalize_raw's fold and quotient step at the edges of its estimate:
+    T = k p - 1, k p and k p + 1 for k from 1 to the largest that the
+    columns can carry, all-zero and all-(2^63 - 1) columns, and random
+    columns over the whole int64 range."""
+    from chip_smoke import T_MAX, carried_cols, normalize_edge_cols
+
+    p = FR
+    k_max = (T_MAX - 1) // p
+    ts = [0, T_MAX]
+    for k in (1, 2, 5, 6, 7, 2**20 + 3, 2**31, 2**31 + 5, k_max - 1, k_max):
+        ts += [k * p - 1, k * p, k * p + 1]
+    rows = [carried_cols(t) for t in ts]
+    assert [sum(c << (32 * j) for j, c in enumerate(r)) for r in rows] == ts
+    assert all(0 <= c < 2**63 for r in rows for c in r)
+    cols = np.concatenate([np.array(rows, dtype=np.int64),
+                           rng.randint(0, 2**63 - 1, size=(40, 8), dtype=np.int64)])
+    out = _ints(harness("fr", "normalize_raw", cols.view(np.uint32), 8))
+    want = [sum(int(v) << (32 * j) for j, v in enumerate(row)) % p for row in cols]
+    assert out == want
+    assert out[2:32:3] == [p - 1] * 10 and out[3:32:3] == [0] * 10
+    edge = normalize_edge_cols(p)  # the rows chip_smoke.py adds to K3's check
+    assert [sum(int(v) << (32 * j) for j, v in enumerate(c)) % p for c in edge.T] == [0, p - 1] * 7
+
+
 def _g1_words(pts):
     """Affine points (None = identity) -> uint32 [n, 24] Montgomery X, Y, Z."""
     rq = FQ_CONSTS.mont_r
@@ -263,7 +301,7 @@ def test_g1_extreme_representatives(harness):
 
 
 # ---------------------------------------------------------------------------
-# Fq2 and G2 (Fq2Pair over fq2_mul_half)
+# Fq2 and G2 (Fq2Pair over K6's per-thread ops)
 # ---------------------------------------------------------------------------
 
 
@@ -290,6 +328,48 @@ def test_fq2_products_match_integers(harness):
     assert _fq2_ints(out) == [mul(x, y) for x, y in zip(a, b)]
     b3 = tuple(3 * c % p * FQ_CONSTS.mont_r % p for c in TWIST_B.coeffs)
     assert _fq2_ints(harness("fq2", "mul_b3", _fq2_words(a), 16)) == [mul(x, b3) for x in a]
+
+
+def test_fq2_lazy_ops_match_integers(harness):
+    """K6's Fq2 ops as Fq2Pair computes each coefficient: the lazy product
+    (2 wide products, 1 reduction), the sum and the difference of two
+    products (4 wide products, 1 reduction), the squaring (1 product) and b3
+    by additions and a product by 9/82.  Operands: every combination of the
+    coefficients 0, 1 and p - 1 (3^4 products, 3^8 sums and differences;
+    all p - 1 is the largest lazy sum, and a difference with d = 0 negates
+    it to the operand p), then random ones."""
+    p, rr = FQ, FQ_CONSTS.mont_r
+    rinv = pow(rr, -1, p)
+    edge = [(x, y) for x in (0, 1, p - 1) for y in (0, 1, p - 1)]
+    rand = list(zip(_rand(p, 37), reversed(_rand(p, 37))))
+
+    def mul(x, y):
+        return ((x[0] * y[0] - x[1] * y[1]) * rinv % p, (x[0] * y[1] + x[1] * y[0]) * rinv % p)
+
+    def lin(x, y, sign):
+        return tuple((u + sign * v) % p for u, v in zip(x, y))
+
+    def run(op, operands, n_out=16):
+        return _fq2_ints(harness("fq2", op, np.concatenate([_fq2_words(o) for o in operands], axis=1),
+                                 n_out))
+
+    pairs = [(x, y) for x in edge for y in edge] + list(zip(rand, reversed(rand)))
+    a, b = map(list, zip(*pairs))
+    assert run("mul", [a, b]) == [mul(x, y) for x, y in zip(a, b)]
+    quads = [(w, x, y, z) for w in edge for x in edge for y in edge for z in edge]
+    quads += [(rand[i], rand[i - 1], rand[i - 2], rand[i - 3]) for i in range(len(rand))]
+    quads += [(x, x, x, (0, 0)) for x in rand]
+    cols = list(map(list, zip(*quads)))
+    for op, sign in (("mul_add", 1), ("mul_sub", -1)):
+        got = run(op, cols)
+        assert got == [lin(mul(w, x), mul(y, z), sign) for w, x, y, z in quads], op
+    one = edge + rand
+    assert run("sqr", [one]) == [mul(x, x) for x in one]
+    b3 = tuple(3 * c % p * rr % p for c in TWIST_B.coeffs)
+    assert run("mul_b3", [one]) == [mul(x, b3) for x in one]
+    k = _ints(harness("fq2", "b3_scale", np.zeros((1, 16), np.uint32), 8))[0]
+    assert k == 9 * pow(82, -1, p) * rr % p
+    assert tuple(c * rinv % p for c in b3) == (9 * k * rinv % p, -k * rinv % p)
 
 
 def _g2_words(projs):
@@ -387,3 +467,34 @@ def test_poseidon_lazy_dot(harness, t):
     want = [sum(x * y for x, y in zip(row[:t], row[t:])) * rinv % FR for row in rows]
     assert got == want
     assert got[0] == t * (FR - 1) ** 2 * rinv % FR
+
+
+def test_point_and_normalize_counts():
+    """The yardsticks chip_smoke.py and kernel_stats.py count for K6 and K3:
+    G2 add 4,144 and double 2,688 multiply-adds a point (lazy Karatsuba,
+    squarings of 2 products, b3 by additions and 2 products), normalize_raw
+    20 a lane (a byte bound); K6's code per thread in products."""
+    import chip_smoke
+    from zkfl_tpu_torch import kernel_stats as ks
+
+    assert chip_smoke.POINT_COST["g2.padd"] == (4144, 576)
+    assert chip_smoke.POINT_COST["g2.pdbl"] == (2688, 384)
+    assert chip_smoke.op_cost("g2.pdbl times=8") == (8 * 2688, 384)
+    assert chip_smoke.op_cost("fr.normalize_raw") == (20, 96)
+    assert chip_smoke.bound("fr.normalize_raw", 1 << 18, 1980.0)[1] == "bytes"
+    got = {name: ks.products_of(name, 3)[0] * 136 for name in ("g2_padd", "g2_pdbl")}
+    assert got == {"g2_padd": pytest.approx(2456), "g2_pdbl": pytest.approx(1536)}
+
+
+def test_launch_bounds_sweep_rewrites_both_hints():
+    """launch_bounds.py sets the minimum-blocks literal of each K6 entry and
+    nothing else."""
+    import re
+
+    from zkfl_tpu_torch import launch_bounds
+
+    src = (CSRC / "g2_point.cu").read_text()
+    out = launch_bounds.with_hints(src, (5, 7))
+    assert re.findall(r"__launch_bounds__\(THREADS, (\d+)\)\s+(g2_\w+)_kernel", out) == [
+        ("5", "g2_padd"), ("7", "g2_pdbl")]
+    assert len(out) == len(src)

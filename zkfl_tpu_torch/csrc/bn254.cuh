@@ -33,9 +33,11 @@ namespace zk {
 
 constexpr int NL = 8;  // 32-bit limbs per element
 
-// Moduli, -p^-1 mod 2^32 and R^2 mod p, limbs little-endian.
+// Moduli, -p^-1 mod 2^32, R^2 mod p, R mod p and MU = floor(2^288 / p),
+// limbs little-endian.
 struct Fr {
   static constexpr uint32_t NP0 = 0xefffffffu;
+  static constexpr uint64_t MU = 0x54a474626ull;
   static ZK_FN uint32_t p(int i) {
     const uint32_t v[NL] = {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
                             0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
@@ -46,10 +48,16 @@ struct Fr {
                             0x53bb8085u, 0x8c49833du, 0x7f4e44a5u, 0x0216d0b1u};
     return v[i];
   }
+  static ZK_FN uint32_t r1(int i) {
+    const uint32_t v[NL] = {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u,
+                            0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
+    return v[i];
+  }
 };
 
 struct Fq {
   static constexpr uint32_t NP0 = 0xe4866389u;
+  static constexpr uint64_t MU = 0x54a474626ull;
   static ZK_FN uint32_t p(int i) {
     const uint32_t v[NL] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
                             0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
@@ -58,6 +66,11 @@ struct Fq {
   static ZK_FN uint32_t r2(int i) {
     const uint32_t v[NL] = {0x538afa89u, 0xf32cfc5bu, 0xd44501fbu, 0xb5e71911u,
                             0x0a417ff6u, 0x47ab1effu, 0xcab8351fu, 0x06d89f71u};
+    return v[i];
+  }
+  static ZK_FN uint32_t r1(int i) {
+    const uint32_t v[NL] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u,
+                            0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
     return v[i];
   }
 };
@@ -123,6 +136,46 @@ ZK_FN void mont_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) 
     c += t[NL];
     t[NL - 1] = (uint32_t)c;
     t[NL] = t[NL + 1] + (uint32_t)(c >> 32);
+  }
+  cond_sub<F>(r, t, t[NL]);
+}
+
+// sum_k a_k b_k R^-1 mod p over K products reduced once (CIOS with the K
+// products' rows added before each reduction row).  For a_k < p and any
+// b_k < 2^256 the accumulator stays below (K + 1) p after each row's shift
+// and below (K + 1)(2^32 + 1) p within a row, which is below 2^288 while
+// (K + 1) p (1 + 2^-32) < R: K <= 4 for Fr and Fq (p < 0.19 R).  For b_k <= p
+// the result before the last subtraction is below p (1 + K p / R) < 2p.
+// Canonical output.
+template <class F, int K>
+ZK_FN void mont_sum(uint32_t r[NL], const uint32_t* const a[K], const uint32_t* const b[K]) {
+  uint32_t t[NL + 1];
+#pragma unroll
+  for (int j = 0; j <= NL; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      uint64_t c = 0;
+#pragma unroll
+      for (int j = 0; j < NL; ++j) {
+        c += (uint64_t)a[k][j] * b[k][i] + t[j];
+        t[j] = (uint32_t)c;
+        c >>= 32;
+      }
+      t[NL] += (uint32_t)c;  // the accumulator stays below 2^288
+    }
+    const uint32_t m = t[0] * F::NP0;
+    uint64_t c = ((uint64_t)m * F::p(0) + t[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < NL; ++j) {
+      c += (uint64_t)m * F::p(j) + t[j];
+      t[j - 1] = (uint32_t)c;
+      c >>= 32;
+    }
+    c += t[NL];
+    t[NL - 1] = (uint32_t)c;
+    t[NL] = (uint32_t)(c >> 32);
   }
   cond_sub<F>(r, t, t[NL]);
 }
@@ -261,6 +314,63 @@ __device__ __forceinline__ void mont_mul_cc(uint32_t r[NL], const uint32_t a[NL]
   cc_finish<F>(r, x, y, pend);  // T = X + Y 2^32 + P < 2p
 }
 
+// T += a * w, one row of a product (P added into word 0 first).
+__device__ __forceinline__ void cc_row(uint32_t x[NL + 1], uint32_t y[NL], uint32_t pend,
+                                       const uint32_t a[NL], uint32_t w) {
+  mac_odd(y, x[0], pend, a[1], a[3], a[5], a[7], w);
+  mac_even(x, a[0], a[2], a[4], a[6], w);
+}
+
+// T = (T + m p) / 2^32 with m chosen so that word 0 of the sum is 0.
+template <class F>
+__device__ __forceinline__ void cc_reduce_row(uint32_t x[NL + 1], uint32_t y[NL], uint32_t& pend) {
+  const uint32_t m = x[0] * F::NP0;
+  mac_even(x, F::p(0), F::p(2), F::p(4), F::p(6), m);  // x[0] becomes 0
+  mac_odd(y, x[0], 0u, F::p(1), F::p(3), F::p(5), F::p(7), m);
+  cc_shift(x, y, pend);
+}
+
+// (a0 b0 + a1 b1) R^-1 and (a0 b0 + ... + a3 b3) R^-1 mod p: mont_mul_cc
+// with two or four products added into each row before its one reduction
+// row, the sum reduced once (mont_sum's bounds; canonical output).
+template <class F>
+__device__ __forceinline__ void mont_sum2_cc(uint32_t r[NL], const uint32_t a0[NL],
+                                             const uint32_t b0[NL], const uint32_t a1[NL],
+                                             const uint32_t b1[NL]) {
+  uint32_t x[NL + 1], y[NL], pend = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) x[j] = y[j] = 0;
+  x[NL] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    cc_row(x, y, pend, a0, b0[i]);
+    cc_row(x, y, 0u, a1, b1[i]);
+    cc_reduce_row<F>(x, y, pend);
+  }
+  cc_finish<F>(r, x, y, pend);
+}
+
+template <class F>
+__device__ __forceinline__ void mont_sum4_cc(uint32_t r[NL], const uint32_t a0[NL],
+                                             const uint32_t b0[NL], const uint32_t a1[NL],
+                                             const uint32_t b1[NL], const uint32_t a2[NL],
+                                             const uint32_t b2[NL], const uint32_t a3[NL],
+                                             const uint32_t b3[NL]) {
+  uint32_t x[NL + 1], y[NL], pend = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) x[j] = y[j] = 0;
+  x[NL] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    cc_row(x, y, pend, a0, b0[i]);
+    cc_row(x, y, 0u, a1, b1[i]);
+    cc_row(x, y, 0u, a2, b2[i]);
+    cc_row(x, y, 0u, a3, b3[i]);
+    cc_reduce_row<F>(x, y, pend);
+  }
+  cc_finish<F>(r, x, y, pend);
+}
+
 // a * R^-1 mod p for any a < 2^256 (Montgomery reduction alone, the
 // product by 1 without its multiplies): the loop of mont_mul_cc with T = a
 // at the start and no a * b_i rows, the pending word added in the m * p
@@ -356,9 +466,34 @@ ZK_FN void fq_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
 #endif
 }
 
+// The Fq sums of two and of four products of K6's lazy Fq2, reduced once:
+// the carry-chain forms on the card, mont_sum on the host.
+ZK_FN void fq_sum2(uint32_t r[NL], const uint32_t a0[NL], const uint32_t b0[NL], const uint32_t a1[NL],
+                   const uint32_t b1[NL]) {
+#if defined(__CUDA_ARCH__)
+  mont_sum2_cc<Fq>(r, a0, b0, a1, b1);
+#else
+  const uint32_t* a[2] = {a0, a1};
+  const uint32_t* b[2] = {b0, b1};
+  mont_sum<Fq, 2>(r, a, b);
+#endif
+}
+
+ZK_FN void fq_sum4(uint32_t r[NL], const uint32_t a0[NL], const uint32_t b0[NL], const uint32_t a1[NL],
+                   const uint32_t b1[NL], const uint32_t a2[NL], const uint32_t b2[NL],
+                   const uint32_t a3[NL], const uint32_t b3[NL]) {
+#if defined(__CUDA_ARCH__)
+  mont_sum4_cc<Fq>(r, a0, b0, a1, b1, a2, b2, a3, b3);
+#else
+  const uint32_t* a[4] = {a0, a1, a2, a3};
+  const uint32_t* b[4] = {b0, b1, b2, b3};
+  mont_sum<Fq, 4>(r, a, b);
+#endif
+}
+
 // The product of K1 and K5, for a < 2^256 and b < p: the carry-chain form
 // on the card (operands swapped to meet its a < p), CIOS on the host.  K2
-// and K3 keep mont_mul on both.
+// keeps mont_mul on both.
 template <class F>
 ZK_FN void field_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
 #if defined(__CUDA_ARCH__)
@@ -499,35 +634,75 @@ ZK_FN void from_mont(uint32_t r[NL], const uint32_t a[NL]) {
   mont_mul<F>(r, a, one);
 }
 
-// Raw per-limb column sums of Montgomery terms -> canonical Montgomery form.
-// cols[j] < 2^63 (sums of at most 2^31 32-bit limbs).  With T the carried
-// value lo + top * 2^256 (top < 2^32):
-//   T mod p = mont_mul(from_mont(lo) + top, R^2)
-// because from_mont(lo) + top = T * R^-1 mod p.
+// The high 64 bits of a * b.
+ZK_FN uint64_t mulhi64(uint64_t a, uint64_t b) {
+#if defined(__CUDA_ARCH__)
+  return __umul64hi(a, b);
+#else
+  return (uint64_t)(((unsigned __int128)a * b) >> 64);
+#endif
+}
+
+// Raw per-limb column sums of Montgomery terms -> canonical Montgomery form:
+// T mod p for T = sum_j cols[j] 2^(32 j), each 0 <= cols[j] < 2^63 (sums of
+// at most 2^31 32-bit limbs).  A fold and one quotient step, about 20
+// multiply-adds:
+//  1. Carry the columns into lo (8 words) and top: T = lo + top 2^256 with
+//     top <= 2^31, as T < 2^63 (2^256 - 1) / (2^32 - 1) < (2^31 + 1) 2^256.
+//  2. Fold: s = lo + top (R mod p) == T mod p, s < 2^256 + 2^31 p < 2^32 p:
+//     9 words, 8 multiply-adds.
+//  3. Quotient: x = floor(s / 2^224) < 2^61 and q = floor(x MU / 2^64)
+//     with MU = floor(2^288 / p) = 2^288 / p - e, 0 <= e < 1.  Then
+//     q <= x 2^224 / p <= s / p, and s / p - x MU / 2^64 = (s mod 2^224) / p
+//     + x e / 2^64 < 2^-29 + 1/8 < 1, so floor(s / p) - q is 0 or 1:
+//     s - q p < 2p, and one conditional subtraction makes it canonical.
+//     q < 2^31 + 6 fits a word; q p is 8 multiply-adds.
 template <class F>
 ZK_FN void normalize_raw(uint32_t r[NL], const int64_t cols[NL]) {
-  uint32_t lo[NL];
+  uint32_t s[NL + 1];
   uint64_t c = 0;
 #pragma unroll
   for (int j = 0; j < NL; ++j) {
     c += (uint64_t)cols[j];  // < 2^63 + 2^32
-    lo[j] = (uint32_t)c;
+    s[j] = (uint32_t)c;
     c >>= 32;
   }
-  uint32_t top[NL];
+  const uint32_t top = (uint32_t)c;
+  c = 0;
 #pragma unroll
-  for (int j = 0; j < NL; ++j) top[j] = j == 0 ? (uint32_t)c : 0u;
-  uint32_t red[NL];
-  from_mont<F>(red, lo);
-  add<F>(red, red, top);
-  to_mont<F>(r, red);
+  for (int j = 0; j < NL; ++j) {
+    c += (uint64_t)top * F::r1(j) + s[j];  // < 2^64
+    s[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  s[NL] = (uint32_t)c;
+  const uint32_t q = (uint32_t)mulhi64(((uint64_t)s[NL] << 32) | s[NL - 1], F::MU);
+  uint64_t m = 0;
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {  // s -= q p; word NL becomes 0 (s - q p < 2p < 2^256)
+    m += (uint64_t)q * F::p(j);
+    const uint64_t d = (uint64_t)s[j] - (uint32_t)m - borrow;
+    m >>= 32;
+    s[j] = (uint32_t)d;
+    borrow = (uint32_t)(d >> 63);
+  }
+  sub_p_if_geq<F>(r, s);
 }
 
 // ---------------------------------------------------------------------------
 // Complete projective formulas of Renes-Costello-Batina 2015 for a = 0
 // (algorithms 7 and 9), written once over a field policy E: E::El is an
-// element and E's mul, add, sub and mul_b3 (by 3b, Montgomery form) act on
-// it.  Branchless; the identity is (0:1:0) and P + P, P + (-P) and sums
+// element, and E acts on it with
+//   mul(r, a, b)            r = a b
+//   sqr(r, a)               r = a^2
+//   mul_add(r, a, b, c, d)  r = a b + c d
+//   mul_sub(r, a, b, c, d)  r = a b - c d
+//   mul_b3(r, a)            r = 3b a (b the curve's constant)
+//   add(r, a, b), sub(r, a, b).
+// The sums of two products are ops of their own so that a policy may reduce
+// once per sum (K6's lazy Fq2); FqPoint (K4) reduces each product, then
+// adds.  Branchless; the identity is (0:1:0) and P + P, P + (-P) and sums
 // with the identity come out right.  The operation order is that of
 // zkfl_tpu's _padd_kernel / _pdbl_kernel and padd_g2 / pdbl_g2; every value
 // is canonical, so each policy gives the same integers.
@@ -568,15 +743,9 @@ ZK_FN void rcb_padd(const E& e, Proj<E>& o, const Proj<E>& p, const Proj<E>& q) 
   e.mul_b3(y3b, y3);    // b3 (X1Z2 + X2Z1)
   e.add(z3a, t1, t2b);  // Y1Y2 + b3 Z1Z2
   e.sub(t1b, t1, t2b);  // Y1Y2 - b3 Z1Z2
-  e.mul(u, t3, t1b);
-  e.mul(v, t4, y3b);
-  e.sub(o.x, u, v);
-  e.mul(u, t1b, z3a);
-  e.mul(v, t00, y3b);
-  e.add(o.y, u, v);
-  e.mul(u, z3a, t4);
-  e.mul(v, t00, t3);
-  e.add(o.z, u, v);
+  e.mul_sub(o.x, t3, t1b, t4, y3b);
+  e.mul_add(o.y, t1b, z3a, t00, y3b);
+  e.mul_add(o.z, z3a, t4, t00, t3);
 }
 
 // RCB15 algorithm 9: o = 2p (o may not alias p).
@@ -584,9 +753,9 @@ ZK_HD_TEMPLATE
 template <class E>
 ZK_FN void rcb_pdbl(const E& e, Proj<E>& o, const Proj<E>& p) {
   typename E::El t0, t1, zz, xy, z3, t2, y3, t2s;
-  e.mul(t0, p.y, p.y);
+  e.sqr(t0, p.y);
   e.mul(t1, p.y, p.z);
-  e.mul(zz, p.z, p.z);
+  e.sqr(zz, p.z);
   e.mul(xy, p.x, p.y);
   e.add(z3, t0, t0);
   e.add(z3, z3, z3);
@@ -596,12 +765,10 @@ ZK_FN void rcb_pdbl(const E& e, Proj<E>& o, const Proj<E>& p) {
   e.add(t2s, t2, t2);
   e.add(t2s, t2s, t2);  // 3 b3 Z^2
   e.sub(t0, t0, t2s);
-  typename E::El x3a, y3a, x3h;
-  e.mul(x3a, t2, z3);
+  typename E::El x3h;
+  e.mul_add(o.y, t2, z3, t0, y3);
   e.mul(o.z, t1, z3);
-  e.mul(y3a, t0, y3);
   e.mul(x3h, t0, xy);
-  e.add(o.y, x3a, y3a);
   e.add(o.x, x3h, x3h);
 }
 
@@ -612,8 +779,21 @@ ZK_FN void rcb_pdbl(const E& e, Proj<E>& o, const Proj<E>& p) {
 struct FqPoint {
   using El = Limbs;
   ZK_FN void mul(El& r, const El& a, const El& b) const { fq_mul(r.v, a.v, b.v); }
+  ZK_FN void sqr(El& r, const El& a) const { fq_mul(r.v, a.v, a.v); }
   ZK_FN void add(El& r, const El& a, const El& b) const { zk::add<Fq>(r.v, a.v, b.v); }
   ZK_FN void sub(El& r, const El& a, const El& b) const { zk::sub<Fq>(r.v, a.v, b.v); }
+  ZK_FN void mul_add(El& r, const El& a, const El& b, const El& c, const El& d) const {
+    El u, v;
+    mul(u, a, b);
+    mul(v, c, d);
+    add(r, u, v);
+  }
+  ZK_FN void mul_sub(El& r, const El& a, const El& b, const El& c, const El& d) const {
+    El u, v;
+    mul(u, a, b);
+    mul(v, c, d);
+    sub(r, u, v);
+  }
   ZK_FN void mul_b3(El& r, const El& a) const {
     El k;
 #pragma unroll
@@ -628,46 +808,113 @@ ZK_FN void g1_padd(G1& o, const G1& p, const G1& q) { rcb_padd(FqPoint{}, o, p, 
 ZK_FN void g1_pdbl(G1& o, const G1& p) { rcb_pdbl(FqPoint{}, o, p); }
 
 // ---------------------------------------------------------------------------
-// G2 over Fq2 = Fq[u] / (u^2 + 1): b3 = 3 b' for the twist's b'.
+// G2 over Fq2 = Fq[u] / (u^2 + 1), one coefficient at a time.  K6 splits a
+// point over two threads: each computes coefficient c0 (mask c1 = 0) or c1
+// (c1 = ~0) of every value, from its own coefficients of the operands (a,
+// b, ...) and its partner's (ap, bp, ...).  Operands and results are picked
+// with the mask, not a branch, so that both halves of a warp run one path
+// (K6 keeps the mask opaque to the compiler, so that it cannot specialise
+// the code per half).
+//
+// Lazy products: a coefficient of a product, or of a sum of two products,
+// is a sum of 2 or 4 Fq products reduced once (fq_sum2, fq_sum4: CIOS with
+// every product's row added before the one reduction row, 64 multiply-adds
+// a product and 72 for the reduction, as for a sum of 512-bit products and
+// one redc_wide, without the 16-word sum).  The minus sign of c0 = a0 b0 -
+// a1 b1 goes onto an operand, a1 (p - b1), so that every term is a product
+// x y with x < p and y <= p, below p^2, and a sum of t terms below t p^2;
+// for Fq and t <= 4 the accumulator fits and the result needs one
+// conditional subtraction (mont_sum's bounds).
 // ---------------------------------------------------------------------------
 
-// Limb i of coefficient c0 (c1 = 0) or c1 (c1 = ~0) of 3 TWIST_B,
-// Montgomery form.
-ZK_FN uint32_t g2_b3(uint32_t c1, int i) {
-  const uint32_t v0[NL] = {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
-                           0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u};
-  const uint32_t v1[NL] = {0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u,
-                           0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au};
-  return v0[i] ^ ((v0[i] ^ v1[i]) & c1);
-}
-
-// One coefficient of the Fq2 product (a0 + a1 u)(b0 + b1 u) as the thread
-// that holds it computes it: (a, b) are this thread's coefficients of the
-// operands, (ap, bp) its partner's.  c1 = 0 gives c0 = a0 b0 - a1 b1,
-// c1 = ~0 gives c1 = a1 b0 + a0 b1: two Fq products either way.  The
-// operands and the result are picked with the mask c1, not a branch, so
-// that both halves of a warp run one path (K6 keeps the mask opaque to the
-// compiler, so that it cannot specialise the code per half).
-ZK_FN void fq2_mul_half(uint32_t r[NL], uint32_t c1, const uint32_t a[NL], const uint32_t b[NL],
-                        const uint32_t ap[NL], const uint32_t bp[NL]) {
-  uint32_t u[NL], w[NL], x[NL], y[NL], s[NL], d[NL];
+// r = p - a for a <= p: r <= p, and r = p for a = 0 (an operand of a lazy
+// product, not a canonical element).
+template <class F>
+ZK_FN void p_minus(uint32_t r[NL], const uint32_t a[NL]) {
+  uint32_t borrow = 0;
 #pragma unroll
   for (int j = 0; j < NL; ++j) {
-    const uint32_t flip = (b[j] ^ bp[j]) & c1;
-    u[j] = b[j] ^ flip;   // bp on c1
-    w[j] = bp[j] ^ flip;  // b on c1
+    const uint64_t s = (uint64_t)F::p(j) - a[j] - borrow;
+    r[j] = (uint32_t)s;
+    borrow = (uint32_t)(s >> 63);
   }
-  fq_mul(x, a, u);   // a0 b0 | a1 b0
-  fq_mul(y, ap, w);  // a1 b1 | a0 b1
-  add<Fq>(s, x, y);
-  sub<Fq>(d, x, y);
+}
+
+// r = x where c1 = 0, y where c1 = ~0 (r may alias x or y).
+ZK_FN void pick(uint32_t r[NL], uint32_t c1, const uint32_t x[NL], const uint32_t y[NL]) {
 #pragma unroll
-  for (int j = 0; j < NL; ++j) r[j] = d[j] ^ ((d[j] ^ s[j]) & c1);
+  for (int j = 0; j < NL; ++j) r[j] = x[j] ^ ((x[j] ^ y[j]) & c1);
+}
+
+// The second factors of this thread's coefficient of (a0 + a1 u)(b0 + b1 u)
+// = a x + ap y:
+//   c0: a0 b0 + a1 (p - b1)        c1: a1 b0 + a0 b1
+// so x = b0 and y = p - b1 | b1, both <= p.
+ZK_FN void fq2_factors_half(uint32_t x[NL], uint32_t y[NL], uint32_t c1, const uint32_t b[NL],
+                            const uint32_t bp[NL]) {
+  pick(x, c1, b, bp);
+  p_minus<Fq>(y, bp);
+  pick(y, c1, y, b);
+}
+
+// r = this thread's coefficient of a b: a sum of 2 products, 1 reduction.
+ZK_FN void fq2_mul_half(uint32_t r[NL], uint32_t c1, const uint32_t a[NL], const uint32_t b[NL],
+                        const uint32_t ap[NL], const uint32_t bp[NL]) {
+  uint32_t x[NL], y[NL];
+  fq2_factors_half(x, y, c1, b, bp);
+  fq_sum2(r, a, x, ap, y);  // below 2 p^2 before the reduction
+}
+
+// r = this thread's coefficient of a b + c d: a sum of 4 products, 1
+// reduction.
+ZK_FN void fq2_mul_add_half(uint32_t r[NL], uint32_t c1, const uint32_t a[NL], const uint32_t b[NL],
+                            const uint32_t c[NL], const uint32_t d[NL], const uint32_t ap[NL],
+                            const uint32_t bp[NL], const uint32_t cp[NL], const uint32_t dp[NL]) {
+  uint32_t x[NL], y[NL], z[NL], w[NL];
+  fq2_factors_half(x, y, c1, b, bp);
+  fq2_factors_half(z, w, c1, d, dp);
+  fq_sum4(r, a, x, ap, y, c, z, cp, w);  // below 4 p^2 < p R before the reduction
+}
+
+// r = this thread's coefficient of a^2, one product:
+//   c0: (a0 + a1)(a0 - a1)        c1: (a1 + a1) a0
+ZK_FN void fq2_sqr_half(uint32_t r[NL], uint32_t c1, const uint32_t a[NL], const uint32_t ap[NL]) {
+  uint32_t x[NL], y[NL];
+  pick(x, c1, ap, a);
+  add<Fq>(x, a, x);
+  sub<Fq>(y, a, ap);
+  pick(y, c1, y, ap);
+  fq_mul(r, x, y);
+}
+
+// Limb i of 9/82 in Fq Montgomery form (9 * 82^-1 * R mod p).  The twist's
+// b' = 3 / (9 + u), so b3 = 3 b' = 9 (9 - u) / ((9 + u)(9 - u)) =
+// (9/82)(9 - u).
+ZK_FN uint32_t g2_b3_scale(int i) {
+  const uint32_t v[NL] = {0x62e5ff12u, 0x9168c5b0u, 0xad07a2d2u, 0x65af5018u,
+                          0x197d565eu, 0x3272d31fu, 0x01f7f840u, 0x2c9f2108u};
+  return v[i];
+}
+
+// r = this thread's coefficient of b3 a = (9/82)((9 a0 + a1) + (9 a1 - a0) u):
+// additions, then one product by the constant 9/82.
+ZK_FN void fq2_mul_b3_half(uint32_t r[NL], uint32_t c1, const uint32_t a[NL], const uint32_t ap[NL]) {
+  uint32_t n[NL], s[NL], d[NL];
+  add<Fq>(n, a, a);
+  add<Fq>(n, n, n);
+  add<Fq>(n, n, n);
+  add<Fq>(n, n, a);  // 9 a
+  add<Fq>(s, n, ap);
+  sub<Fq>(d, n, ap);
+  pick(s, c1, s, d);  // 9 a0 + a1 | 9 a1 - a0
+#pragma unroll
+  for (int j = 0; j < NL; ++j) n[j] = g2_b3_scale(j);
+  fq_mul(r, s, n);
 }
 
 // Both coefficients in one thread (El = c0, c1): the host's G2 arithmetic,
-// which tests/test_torch_csrc.py runs with g++.  It computes each half as
-// K6's two threads do, without the exchange.
+// which tests/test_torch_csrc.py runs with g++.  It computes each
+// coefficient as K6's thread that holds it does, without the exchange.
 struct Fq2Pair {
   struct El {
     uint32_t c[2][NL];
@@ -678,6 +925,24 @@ struct Fq2Pair {
     fq2_mul_half(t.c[1], ~0u, a.c[1], b.c[1], a.c[0], b.c[0]);
     r = t;
   }
+  ZK_FN void sqr(El& r, const El& a) const {
+    El t;
+    fq2_sqr_half(t.c[0], 0u, a.c[0], a.c[1]);
+    fq2_sqr_half(t.c[1], ~0u, a.c[1], a.c[0]);
+    r = t;
+  }
+  ZK_FN void mul_add(El& r, const El& a, const El& b, const El& c, const El& d) const {
+    El t;
+    fq2_mul_add_half(t.c[0], 0u, a.c[0], b.c[0], c.c[0], d.c[0], a.c[1], b.c[1], c.c[1], d.c[1]);
+    fq2_mul_add_half(t.c[1], ~0u, a.c[1], b.c[1], c.c[1], d.c[1], a.c[0], b.c[0], c.c[0], d.c[0]);
+    r = t;
+  }
+  ZK_FN void mul_sub(El& r, const El& a, const El& b, const El& c, const El& d) const {
+    El n;  // -d, coefficient by coefficient, each <= p
+    p_minus<Fq>(n.c[0], d.c[0]);
+    p_minus<Fq>(n.c[1], d.c[1]);
+    mul_add(r, a, b, c, n);
+  }
   ZK_FN void add(El& r, const El& a, const El& b) const {
     zk::add<Fq>(r.c[0], a.c[0], b.c[0]);
     zk::add<Fq>(r.c[1], a.c[1], b.c[1]);
@@ -687,13 +952,10 @@ struct Fq2Pair {
     zk::sub<Fq>(r.c[1], a.c[1], b.c[1]);
   }
   ZK_FN void mul_b3(El& r, const El& a) const {
-    El k;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-      k.c[0][j] = g2_b3(0u, j);
-      k.c[1][j] = g2_b3(~0u, j);
-    }
-    mul(r, a, k);
+    El t;
+    fq2_mul_b3_half(t.c[0], 0u, a.c[0], a.c[1]);
+    fq2_mul_b3_half(t.c[1], ~0u, a.c[1], a.c[0]);
+    r = t;
   }
 };
 
@@ -704,16 +966,16 @@ ZK_FN void g2_pdbl(G2& o, const G2& p) { rcb_pdbl(Fq2Pair{}, o, p); }
 
 #if defined(__CUDACC__)
 // K6's split of Fq2 over a pair of threads: lanes l and l ^ 16 of a warp
-// hold c0 and c1 of one point, El is this thread's coefficient, and a
-// product fetches the partner's coefficients of its operands with
-// __shfl_xor_sync(., 16).  Every thread of the warp must call mul and
-// mul_b3 together (full mask).  The constant b3 needs no exchange: both
-// threads know both of its coefficients.  add and sub stay in the thread.
+// hold c0 and c1 of one point, El is this thread's coefficient, and each op
+// with a product fetches the partner's coefficients of its operands with
+// __shfl_xor_sync(., 16).  Every thread of the warp must call those ops
+// together (full mask).  add and sub stay in the thread, and so does the
+// negation of mul_sub's d (the partner negates its own coefficient).
 struct Fq2Lane {
   using El = Limbs;
   uint32_t c1;  // ~0 where this thread holds coefficient c1 (lanes 16-31), else 0
 
-  // The mask of this lane, hidden from the optimiser (see fq2_mul_half).
+  // The mask of this lane, hidden from the optimiser (see above).
   __device__ __forceinline__ static Fq2Lane of_lane(int lane) {
     uint32_t m = 0u - (uint32_t)(lane >> 4);
     asm("" : "+r"(m));
@@ -730,6 +992,26 @@ struct Fq2Lane {
     partner(bp, b);
     fq2_mul_half(r.v, c1, a.v, b.v, ap.v, bp.v);
   }
+  __device__ __forceinline__ void sqr(El& r, const El& a) const {
+    El ap;
+    partner(ap, a);
+    fq2_sqr_half(r.v, c1, a.v, ap.v);
+  }
+  __device__ __forceinline__ void mul_add(El& r, const El& a, const El& b, const El& c,
+                                          const El& d) const {
+    El ap, bp, cp, dp;
+    partner(ap, a);
+    partner(bp, b);
+    partner(cp, c);
+    partner(dp, d);
+    fq2_mul_add_half(r.v, c1, a.v, b.v, c.v, d.v, ap.v, bp.v, cp.v, dp.v);
+  }
+  __device__ __forceinline__ void mul_sub(El& r, const El& a, const El& b, const El& c,
+                                          const El& d) const {
+    El n;
+    p_minus<Fq>(n.v, d.v);
+    mul_add(r, a, b, c, n);
+  }
   __device__ __forceinline__ void add(El& r, const El& a, const El& b) const {
     zk::add<Fq>(r.v, a.v, b.v);
   }
@@ -737,14 +1019,9 @@ struct Fq2Lane {
     zk::sub<Fq>(r.v, a.v, b.v);
   }
   __device__ __forceinline__ void mul_b3(El& r, const El& a) const {
-    El ap, k, kp;
+    El ap;
     partner(ap, a);
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-      k.v[j] = g2_b3(c1, j);
-      kp.v[j] = g2_b3(~c1, j);
-    }
-    fq2_mul_half(r.v, c1, a.v, k.v, ap.v, kp.v);
+    fq2_mul_b3_half(r.v, c1, a.v, ap.v);
   }
 };
 #endif  // __CUDACC__

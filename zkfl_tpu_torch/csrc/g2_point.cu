@@ -11,29 +11,41 @@
 //
 // Design: two threads per point.  In a warp, lanes 0-15 hold c0 of points
 // i..i+15 and lanes 16-31 hold c1 of the same points, so each half-warp
-// reads and writes 16 consecutive words per limb row.  An Fq2 product is
-// split over the pair: the c0 thread computes a0 b0 - a1 b1, the c1 thread
-// a1 b0 + a0 b1, each after fetching its partner's 8 limbs of both operands
-// with __shfl_xor_sync(., 16) (of one operand for the constant b3): 2 Fq
-// products a thread on the critical path, against 3 for Karatsuba on one
-// thread, and 24 words of point state a thread instead of 48, which keeps
-// padd's live Fq2 temporaries in registers.  Add and sub stay in the
-// thread.  Branchless, one point pair a thread, so every thread of a warp
+// reads and writes 16 consecutive words per limb row.  Each op with a
+// product fetches the partner's 8 limbs of its operands with
+// __shfl_xor_sync(., 16); add and sub stay in the thread.  The Fq2 policy
+// (bn254.cuh Fq2Lane) is lazy: the c0 thread computes a0 b0 + a1 (p - b1),
+// the c1 thread a1 b0 + a0 b1, each as a sum of two Fq products with one
+// Montgomery reduction (CIOS on the carry chains with both products' rows
+// before each reduction row); padd's X3, Y3, Z3 and pdbl's Y3, each a sum
+// of two Fq2 products, take a sum of four Fq products and one reduction a
+// coefficient; the squarings one product a thread ((a0 + a1)(a0 - a1) and
+// 2 a1 a0); b3 = (9/82)(9 - u) additions and one product by 9/82.  A
+// first build summed 512-bit products and reduced them with redc_wide (as
+// K5 does): the same multiply-adds, but two fresh 16-word values a
+// product, which ptxas served with register moves; it ran slower than the
+// unlazy kernel before it.  24 words of point state a thread instead of
+// 48.  Branchless, one point pair a thread, so every thread of a warp
 // reaches every shuffle with the full mask; in the ragged tail the threads
 // past n compute on the last point and store nothing: no early return.
 //
-// Bound: integer multiply-adds.  The fewest Fq products (136 multiply-adds
-// each) of a correct design: 3 per Fq2 product (Karatsuba), 2 per Fq2
-// squaring, and 2 per multiply by b3 = 3 b' = (9/82)(9 - u), as
-// (9/82)(9 a0 + a1) and (9/82)(9 a1 - a0).  padd: 12 products and 2 by b3
-// = 40 Fq products against 576 bytes moved; pdbl: 6 products, 2 squarings
-// and 1 by b3 = 24 against 384 bytes (times doublings: 24 x times).  The
-// split does 4 Fq products for each of these (56 and 36), so it can reach
-// at most 0.71 (padd) or 0.67 (pdbl) of that bound.
+// Bound: integer multiply-adds, the fewest of a correct design: an Fq2
+// product by Karatsuba with lazy reduction, 3 products left unreduced (64
+// multiply-adds each) and 2 reductions (72); a sum of two Fq2 products, 6
+// unreduced products and 2 reductions; a squaring, 2 Fq products (136); a
+// product by b3, 2 Fq products.  padd: 6 products, 3 sums of two and 2 by
+// b3 = 4,144 a point against 576 bytes moved; pdbl: 4 products, 2
+// squarings, 1 sum of two and 1 by b3 = 2,688 against 384 bytes (times
+// doublings).  The split does, per thread, padd 24 unreduced products, 9
+// reductions and 2 products (2,456; 4,912 a point), pdbl 12, 5 and 3
+// (1,536; 3,072), so it can reach at most 0.84 (padd) or 0.88 (pdbl) of
+// that bound.
 //
-// Launch bounds: 128-thread blocks, a minimum of 2 (padd) and 3 (pdbl)
-// blocks per SM, the most that ptxas fits without spilling (194 and 164
-// registers; one block more spills).
+// Launch bounds: 128-thread blocks, a minimum of 3 blocks per SM for both
+// entries, chosen by card time (python -m zkfl_tpu_torch.launch_bounds):
+// padd fits 2 blocks without spill (220 registers) and 3 with 80 bytes of
+// spill (168), and runs faster at 3; pdbl fits 3 (146) and 4 (128) without
+// spill, and runs faster at 3.
 #include <cuda_runtime.h>
 
 #include "bn254.cuh"
@@ -75,7 +87,7 @@ __device__ __forceinline__ long long point_index(int lane) {
   return ((long long)blockIdx.x * WARPS + threadIdx.x / 32) * POINTS_PER_WARP + (lane & 15);
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 3)
     g2_padd_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
                    uint32_t* __restrict__ out, long long n) {
   const int lane = threadIdx.x & 31;

@@ -8,10 +8,12 @@
 // bound "row sum < nnz_row * 2^16 < 2^31" becomes: the sums arrive as int64,
 // each < nnz_row * 2^32, which holds for rows of fewer than 2^31 terms.
 //
-// Bound: 64 bytes in, 32 out, two mont_muls per lane; it runs once per
-// constraint row, far less often than the field and point kernels.  Design:
-// one thread per row: carry the eight int64 columns into 8 limbs plus a top
-// word, then T mod p = mont_mul(from_mont(lo) + top, R^2) (bn254.cuh).
+// Bound: bytes, 64 in and 32 out per lane; the arithmetic is about 20
+// 32-bit multiply-adds a lane.  Design: one thread per row: carry the eight
+// int64 columns into 8 limbs plus a top word, fold the top word back with
+// R mod p, then one quotient step from the top 64 bits and at most one
+// conditional subtraction (bn254.cuh normalize_raw, which states the
+// estimate's error).
 #include <cuda_runtime.h>
 
 #include "bn254.cuh"

@@ -5,9 +5,10 @@ entry function, and SASS instruction counts from cuobjdump.
 
 prints ptxas's report (from the build.log beside LIB) and the SASS counts of
 the product kernels in LIB, per field product: the point kernels (K4, K6)
-per Fq product, K1 per Fr or Fq product, K5 per Fr product (default LIB:
-this checkout's build, built first if needed).  Needs the CUDA toolkit
-(nvcc, cuobjdump); no card.  chip_smoke.py prints the same report in its build phase.
+per Fq product, K1 per Fr or Fq product, K5 per Fr product, K3 per lane
+(default LIB: this checkout's build, built first if needed).  Needs the
+CUDA toolkit (nvcc, cuobjdump); no card.  chip_smoke.py prints the same
+report in its build phase.
 """
 
 from __future__ import annotations
@@ -21,16 +22,21 @@ from pathlib import Path
 
 from . import backend
 
-# entry name -> Fq products per thread in the kernel body (K4: one point a
-# thread; K6: one Fq2 coefficient a thread, 2 Fq products per Fq2 product;
-# pdbl's body is one doubling of its loop).
-PRODUCTS = {"g1_padd": 14, "g1_pdbl": 9, "g2_padd": 28, "g2_pdbl": 18}
+# Multiply-adds of a product left unreduced (a 512-bit product, or a
+# product's rows in a sum reduced once) and of a reduction, in products (136
+# multiply-adds): K5 and K6 inline both, and together they make one.
+WIDE, REDC = 64 / 136, 72 / 136
+# entry name -> Fq products per thread in the kernel body (pdbl's body is
+# one doubling of its loop).  K4: one point a thread, every product
+# reduced.  K6: one Fq2 coefficient a thread (bn254.cuh Fq2Lane); padd's 6
+# lazy products (2 unreduced products and a reduction each) and 3 sums of
+# two (4 and 1), and 2 products by b3; pdbl's 4 lazy products and 1 sum of
+# two, 2 squarings and 1 product by b3.
+PRODUCTS = {"g1_padd": 14, "g1_pdbl": 9,
+            "g2_padd": 24 * WIDE + 9 * REDC + 2, "g2_pdbl": 12 * WIDE + 5 * REDC + 3}
 # K1 op (csrc/field_ew.cu enum Op) -> products a thread; from_mont's
 # reduction counts as one.  add (1) and sub (2) have none.
 FIELD_PRODUCTS = {0: 1, 3: 1, 4: 1, 5: 1, 6: 2, 7: 1}
-# Multiply-adds of a 512-bit product and of a reduction, in products
-# (136 multiply-adds): K5 inlines both, and together they make one.
-WIDE, REDC = 64 / 136, 72 / 136
 ENTRIES = ("field_ew", "butterfly", "normalize_raw", "g1_padd", "g1_pdbl", "g2_padd", "g2_pdbl",
            "poseidon")
 REGS_PER_SM = 65536
@@ -135,9 +141,13 @@ def products_of(name: str, reg_max: int):
 
 def product_sass_lines(binary: Path) -> list:
     """One line per kernel entry with field products (K1, K4, K5, K6): SASS
-    instructions in all and per product."""
+    instructions in all and per product; and K3's, whose loop body is one
+    lane (no product: a fold and a quotient step)."""
     lines, reg_max = [], poseidon_reg_max_t()
     for name, c in sorted(sass_counts(binary).items()):
+        if name == "normalize_raw":
+            lines.append(f"{name}: {c['all']} SASS instructions, {c['imad']} IMAD, "
+                         f"{c['iadd3']} IADD3 (one lane per loop iteration)")
         got = products_of(name, reg_max)
         if got:
             k, field = got
