@@ -20,10 +20,14 @@ nothing of zkfl_tpu.  Phases (any failure raises and exits non-zero):
      2^8 at the others);
      the card time of each (over input sets larger than the L2) and the
      wall time per call;
-  4. MICRO_CONFIG balance proof on TorchEngine == HostEngine's, bit for
-     bit, under deterministic blinding;
+  4. MICRO_CONFIG balance setup on the card (the fixed-base batches of
+     groth16/device_setup.py: a table gather and five levels of K4 / K6
+     padd) == the pure-Python ladder's keys, every affine point of pk and
+     vk; its proof on TorchEngine == HostEngine's, bit for bit, under
+     deterministic blinding;
   5. one REFERENCE_CONFIG FL round through the port's RoundProver and
-     run_round: 3 clients batched, 9 proofs verified by the native
+     run_round: cold setups on the card (their time, host/card split),
+     3 clients batched, 9 proofs verified by the native
      verifier, masks cancel; every kernel of the path launched, and no
      fq.add / fq.sub / fq.mont_mul; each G1 and G2 MSM's wall time, and the
      card time of its point kernels, its launches replayed at their shapes;
@@ -32,8 +36,19 @@ nothing of zkfl_tpu.  Phases (any failure raises and exits non-zero):
      each K5 launch of it timed by CUDA events in that run, and 2^12 of its
      states (a seeded slice of every launch) equal permute_plain's;
      32 seeded leaves equal the host hash and their device paths verify to
-     the device root; at depth 12 the root equals the native host tree's.
-fr.poseidon's row in the kernel report is phase 6's launches.
+     the device root; at depth 12 the root equals the native host tree's;
+  7. the production run, fl/prod.py on the card: the balance proof at
+     N=128, DIM=16, DEPTH=7 (357,764 constraints, a 2^19 domain) and the
+     sgd_step_v5 proof (25,858 constraints).  Where build/zkfl_prod_artifacts
+     is empty, a process spawned before phase 2 builds both structures in
+     Python beside phases 2-5 and caches their COO forms, then, after phase
+     6, sets them up on the card (fl/prod.py's cold path; its time and the
+     host/card split printed); run_prod_integration then runs from those
+     caches: both proofs verify natively and bind the same root_D; every
+     timing of its result, peak card memory, each MSM's wall and its point
+     kernels' card time, and the time split of each step.
+fr.poseidon's row in the kernel report is phase 6's launches; each row's
+"paths" splits its launches by phase (setup: phase 5's cold setups).
 The last two lines are the kernel report and the device line, both JSON.
 """
 
@@ -447,21 +462,187 @@ def phase_kernels(dev, backend, sm_mhz):
     return rows
 
 
-def phase_micro_parity(dev, artifacts):
-    """Phase 4: MICRO_CONFIG balance proof, TorchEngine vs HostEngine."""
+def key_ints(obj):
+    """A proving or verifying key as nested tuples of ints (G2 coordinates
+    by their Fq2 coefficients)."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(obj):
+        return tuple((f.name, key_ints(getattr(obj, f.name))) for f in dataclasses.fields(obj))
+    if isinstance(obj, (list, tuple)):
+        return tuple(key_ints(v) for v in obj)
+    return tuple(obj.coeffs) if hasattr(obj, "coeffs") else obj
+
+
+class SetupTap:
+    """While active, wraps device_setup._fixed_mul (one chunk of a
+    fixed-base batch: the table gather and the five padd levels of
+    _fold_sum): the card synchronised before and after each call, its host
+    wall time, CUDA events around it, its group, scalar count and launches."""
+
+    def __init__(self, backend):
+        from zkfl_tpu_torch.groth16 import device_setup
+        from zkfl_tpu_torch.ops import msm
+
+        self.backend, self.mod, self.msm = backend, device_setup, msm
+        self.calls = []                        # (group, scalars, wall ms, card ms, launches)
+
+    def __enter__(self):
+        import torch
+
+        impl = self.impl = self.mod._fixed_mul
+
+        def tapped(table, idx, ops):
+            torch.cuda.synchronize()
+            before = collections.Counter(self.backend.LAUNCHES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = impl(table, idx, ops)
+            end.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            made = collections.Counter(self.backend.LAUNCHES) - before
+            group = "g2" if ops is self.msm._G2Ops else "g1"
+            self.calls.append((group, idx.shape[1], wall, start.elapsed_time(end), dict(made)))
+            return out
+
+        self.mod._fixed_mul = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._fixed_mul = self.impl
+
+    def report(self, total_s: float) -> str:
+        """The split of ``total_s`` seconds of setups: the fixed-base chunks'
+        wall (card synchronised around each) and card time, the rest on the
+        host."""
+        parts = []
+        for group in ("g1", "g2"):
+            calls = [c for c in self.calls if c[0] == group]
+            made = collections.Counter()
+            for c in calls:
+                made.update(c[4])
+            parts.append(f"{group}: {len(calls)} chunks, {sum(c[1] for c in calls)} scalars, "
+                         f"wall {sum(c[2] for c in calls):.1f} ms, card {sum(c[3] for c in calls):.1f} ms, "
+                         f"launches {dict(made)}")
+        card_wall = sum(c[2] for c in self.calls) / 1e3
+        return (f"{total_s:.3f} s of setups: {card_wall:.3f} s in the fixed-base chunks on the card, "
+                f"{total_s - card_wall:.3f} s on the host; " + "; ".join(parts))
+
+
+class WallTap:
+    """While active, wraps the given functions ((owner, attribute) pairs: a
+    module's function, a class's method or static method): the card
+    synchronised before and after each call (unless ``sync`` is false: host
+    code in a process that must not touch the card yet), the host wall time
+    summed per function, nested tapped calls included in their callers'
+    time."""
+
+    def __init__(self, targets, sync: bool = True):
+        self.targets, self.sync = targets, sync
+        self.ms, self.calls = collections.Counter(), collections.Counter()
+
+    def __enter__(self):
+        import torch
+
+        sync = torch.cuda.synchronize if self.sync else (lambda: None)
+        self.saved = []
+        for owner, attr in self.targets:
+            raw = owner.__dict__[attr]
+            fn = getattr(owner, attr)
+            label = f"{getattr(owner, '__name__', '?').rsplit('.', 1)[-1]}.{attr}"
+
+            def tapped(*args, _fn=fn, _label=label, **kwargs):
+                sync()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                sync()
+                self.ms[_label] += (time.perf_counter() - t0) * 1e3
+                self.calls[_label] += 1
+                return out
+
+            self.saved.append((owner, attr, raw))
+            setattr(owner, attr, staticmethod(tapped) if isinstance(raw, staticmethod) else tapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, raw in reversed(self.saved):
+            setattr(owner, attr, raw)
+
+    def report(self, what: str) -> None:
+        for label, ms in self.ms.items():
+            log(f"  {what} split {label:36s} {self.calls[label]:5d} calls {ms:11.1f} ms")
+
+
+def setup_targets():
+    """The functions of a cold setup, for WallTap: the setup and its cache
+    write (setup_cached less groth16_setup is the pickle), the wire
+    evaluations, each fixed-base batch and its host parts (digits, unpack,
+    G1's batched affine conversion; G2's per-point inversions are the rest
+    of batch_fixed_mul_g2)."""
+    from zkfl_tpu_torch.groth16 import device_setup, setup
+    from zkfl_tpu_torch.ops import limb_kernels
+
+    return [(setup, "setup_cached"), (setup, "groth16_setup"), (setup, "wire_evals"),
+            (setup, "lagrange_evals_at"), (device_setup, "batch_fixed_mul_g1"),
+            (device_setup, "batch_fixed_mul_g2"), (device_setup, "_digit_indices"),
+            (device_setup, "_batch_affine"), (limb_kernels.TorchField, "unpack")]
+
+
+def prove_targets():
+    """The functions of a fused prove, for WallTap: the key upload and COO
+    stream (DeviceProver.__init__), the NTT tables, the witness packing, the
+    card pipeline, the results' download, the blinding and the assembly."""
+    from zkfl_tpu_torch.groth16 import device_prover, prover
+    from zkfl_tpu_torch.ops import point_kernels, qap
+
+    return [(device_prover.DeviceProver, "__init__"), (point_kernels, "g1_to_device"),
+            (point_kernels, "g2_to_device"), (qap, "_bitrev_idx"), (qap, "_stage_twiddles"),
+            (qap, "_coset_powers"), (device_prover.DeviceProver, "pack_witnesses"),
+            (device_prover, "_prove_msms_impl"), (device_prover.DeviceProver, "results_from_device"),
+            (prover, "default_blinding"), (prover, "_assemble_proof")]
+
+
+def phase_micro_parity(dev, artifacts, backend):
+    """Phase 4: MICRO_CONFIG balance setup, card vs the pure-Python ladder;
+    its proof, TorchEngine vs HostEngine."""
     from zkfl_tpu_torch.fl.client import Client, SharedLCG
     from zkfl_tpu_torch.fl.config import MICRO_CONFIG
     from zkfl_tpu_torch.groth16.engine import HostEngine, TorchEngine
     from zkfl_tpu_torch.groth16.prover import groth16_prove
-    from zkfl_tpu_torch.groth16.setup import setup_cached
+    from zkfl_tpu_torch.groth16.setup import cache_path, groth16_setup, setup_cached
     from zkfl_tpu_torch.groth16.verifier import groth16_verify
     from zkfl_tpu_torch.r1cs.circuits import build_structure
+
+    cs = build_structure(MICRO_CONFIG.balance_params)
+    backend.LAUNCHES.clear()
+    with SetupTap(backend) as tap:
+        t0 = time.time()
+        card_keys = groth16_setup(cs, device=dev)
+        card_s = time.time() - t0
+    launches = dict(backend.LAUNCHES)
+    t0 = time.time()
+    ladder_keys = groth16_setup(cs, device=None)
+    ladder_s = time.time() - t0
+    if key_ints(card_keys) != key_ints(ladder_keys):
+        raise AssertionError("MICRO balance setup: the card's keys != the pure-Python ladder's")
+    if not launches.get("g1.padd") or not launches.get("g2.padd"):
+        raise AssertionError(f"the card setup launched no g1.padd or g2.padd: {launches}")
+    pk, vk = card_keys
+    n_points = sum(len(q) for q in (pk.a_query, pk.b1_query, pk.b2_query, pk.c_query,
+                                    pk.h_query, vk.ic)) + 8
+    log(f"  {cs.name} setup: card {card_s:.2f} s (tables built and uploaded on first use), "
+        f"ladder {ladder_s:.2f} s; all {n_points} affine points of pk and vk equal; "
+        f"launches {launches}; {tap.report(card_s)}")
+    # One cache file for either device: its name holds no device.
+    path = cache_path(cs, artifacts)
+    if key_ints(setup_cached(cs, artifacts, device=dev)) != key_ints(ladder_keys) or not path.exists():
+        raise AssertionError(f"setup cache {path} does not hold the ladder's keys")
 
     saved = os.environ.get("ZKFL_DETERMINISTIC_BLINDING")
     os.environ["ZKFL_DETERMINISTIC_BLINDING"] = "1"
     try:
-        cs = build_structure(MICRO_CONFIG.balance_params)
-        pk, vk = setup_cached(cs, artifacts)
         client = Client(1, MICRO_CONFIG, None)
         client.generate_private_dataset(SharedLCG(MICRO_CONFIG.seed))
         client.compute_dataset_commitment()
@@ -559,44 +740,64 @@ def replay_ms(backend, dev, shapes) -> float:
     return kernel_ms(lambda: run(), [()], 1)
 
 
+def report_msms(tap, labels, backend, dev) -> None:
+    """Each tapped MSM's wall and its point kernels' card time (replayed);
+    ``labels`` names the MSMs' proofs in pairs (a G1 then a G2 MSM each)."""
+    for k, (group, rows, lanes, ms, made, shapes) in enumerate(tap.calls):
+        counted = sum(v for op, v in made.items() if op.startswith(("g1.", "g2.")))
+        if len(shapes) != counted:
+            raise AssertionError(f"{len(shapes)} point launches tapped, {counted} counted")
+        log(f"  {labels[k // 2]:8s} {group} MSM, {rows} scalar rows x {lanes} points: "
+            f"{ms:9.3f} ms wall, its point kernels {replay_ms(backend, dev, shapes):7.3f} ms of card "
+            f"time (replayed); launches {made}")
+
+
 def phase_round(dev, artifacts, backend):
-    """Phase 5: one REFERENCE_CONFIG round on the port; returns launch counts."""
+    """Phase 5: one REFERENCE_CONFIG round on the port, its cold setups on
+    the card; returns the launch counts of the setups and of the round."""
     import torch
 
     from zkfl_tpu_torch.commit.vector_hash import from_field
     from zkfl_tpu_torch.field.bn254 import FR
+    from zkfl_tpu_torch.fl import prover as fl_prover
     from zkfl_tpu_torch.fl.config import REFERENCE_CONFIG
     from zkfl_tpu_torch.fl.prover import RoundProver
     from zkfl_tpu_torch.fl.simulation import run_round
     from zkfl_tpu_torch.groth16.engine import TorchEngine
 
     cfg = REFERENCE_CONFIG
-    t0 = time.time()
-    prover = RoundProver(cfg, TorchEngine(dev), cache_dir=artifacts)
-    log(f"  setups ready in {time.time() - t0:.1f} s; profile {prover.engine.profile}")
+    backend.LAUNCHES.clear()
+    with SetupTap(backend) as tap, WallTap(setup_targets()) as walls:
+        t0 = time.time()
+        prover = RoundProver(cfg, TorchEngine(dev), cache_dir=artifacts)
+        setup_s = time.time() - t0
+    setup_launches = dict(backend.LAUNCHES)
+    cold = bool(tap.calls)
+    log(f"  setups ready in {setup_s:.1f} s ({'cold, on the card' if cold else 'from the cache'}); "
+        f"profile {prover.engine.profile}")
+    walls.report("setups")
+    if cold:
+        log(f"  {tap.report(setup_s)}")
+        if not setup_launches.get("g1.padd") or not setup_launches.get("g2.padd"):
+            raise AssertionError(f"the cold setups launched no g1.padd or g2.padd: {setup_launches}")
     for cs in (prover.balance_cs, prover.training_cs, prover.secagg_cs):
         log(f"  {cs.name}: {cs.n_wires} wires, {len(cs.constraints)} constraints")
 
     backend.LAUNCHES.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    with MSMTap(backend) as tap:
+    with MSMTap(backend) as tap, WallTap(prove_targets() + [(fl_prover, "groth16_verify")]) as walls:
         server, timings = run_round(cfg, prover=prover, verbose=False)
     torch.cuda.synchronize()
     launches = dict(backend.LAUNCHES)
+    walls.report("round")
 
     # The proofs run circuit by circuit, one batched prove each: a G1 then
     # a G2 MSM per circuit.
     circuits = ("balance", "training", "secagg")
     if [c[0] for c in tap.calls] != ["g1", "g2"] * len(circuits):
         raise AssertionError(f"MSM calls {[c[:3] for c in tap.calls]}, expected G1, G2 per circuit")
-    for k, (group, rows, lanes, ms, made, shapes) in enumerate(tap.calls):
-        counted = sum(v for op, v in made.items() if op.startswith(("g1.", "g2.")))
-        if len(shapes) != counted:
-            raise AssertionError(f"{len(shapes)} point launches tapped, {counted} counted")
-        log(f"  {circuits[k // 2]:8s} {group} MSM, {rows} scalar rows x {lanes} points: "
-            f"{ms:9.3f} ms wall, its point kernels {replay_ms(backend, dev, shapes):7.3f} ms of card "
-            f"time (replayed); launches {made}")
+    report_msms(tap, circuits, backend, dev)
     unfused = {op: launches.get(op, 0) for op in ("fq.add", "fq.sub", "fq.mont_mul")}
     if any(unfused.values()) or not launches.get("g2.padd") or not launches.get("g2.pdbl"):
         raise AssertionError(f"the G2 MSM did not go through K6 alone: {unfused}, "
@@ -623,7 +824,7 @@ def phase_round(dev, artifacts, backend):
             m == [g % FR for g in server.training_updates[c].gradient] for c, m in zip(ids, masked)):
         raise AssertionError("masks did not cancel in the aggregate")
     log(f"  {proofs} proofs verified; masks cancel: aggregate {server.aggregated_gradient}")
-    return launches
+    return setup_launches, launches
 
 
 def dataset(gen, n, dev):
@@ -794,6 +995,173 @@ def phase_commitment(dev, backend, sm_mhz):
     return launches, k5_row
 
 
+# The kernels of the production run (phase 7): the fused prove path and
+# the setup's fold (fq.to_mont uploads the keys).
+PROD_PATH = ("fr.to_mont", "fr.mont_mul", "fr.from_mont", "fr.mul_sub_mul_const",
+             "fr.mont_mul_const", "fr.butterfly", "fr.normalize_raw", "fq.to_mont",
+             "g1.padd", "g1.pdbl", "g2.padd", "g2.pdbl")
+PROD_CONSTRAINTS = {"balance": 357_764, "v5": 25_858}  # zkfl_tpu/fl/prod.py:165, ROADMAP
+
+
+PROD_CACHE = os.path.join(REPO, "build", "zkfl_prod_artifacts")
+
+
+def structure_targets():
+    """The functions of fl/prod.py's structure step, for WallTap."""
+    from zkfl_tpu_torch.fl import prod
+    from zkfl_tpu_torch.r1cs import compiled
+
+    return [(prod, "build_structure"), (prod, "compile_and_cache"), (prod, "compiled_cached"),
+            (compiled.CompiledCircuit, "from_structure"), (compiled.CompiledCircuit, "save")]
+
+
+def prod_prepare(ready, results):
+    """Phase 7's cold work, in a process spawned before phase 2: the two
+    production structures built in Python and their COO forms cached (host
+    only, beside phases 2-5), then, once phase 6 has ended (``ready``),
+    their setups on the card into the zkey cache: fl/prod.py's cold path
+    (_structure, _setup), which run_prod_integration then finds warm.  Puts
+    ("ok", timings, launches) or ("error", traceback) on ``results``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, REPO)
+        from zkfl_tpu_torch import backend
+        from zkfl_tpu_torch.fl import prod
+
+        def say(msg):
+            log(f"  [7, spawned] {msg}")
+
+        with WallTap(structure_targets(), sync=False) as walls:
+            t0 = time.time()
+            circuits = [(params, *prod._structure(params, PROD_CACHE, say))
+                        for params in (prod.BALANCE_PARAMS, prod.V5_PARAMS)]
+            out = {"structures_s": time.time() - t0}
+        walls.report("[7, spawned] structures")
+        cold = [c for c in circuits if c[2] is not None]
+        say(f"structures ready in {out['structures_s']:.1f} s "
+            f"({len(cold)} of 2 built); waiting for phase 6 to end before the setups")
+        ready.wait()
+        dev = backend.device("cuda:0")
+        backend.LAUNCHES.clear()
+        with SetupTap(backend) as tap, WallTap(setup_targets() + [(prod, "setup_cached")]) as walls:
+            t0 = time.time()
+            for params, cc, full in cold:
+                prod._setup(cc, full, params, PROD_CACHE, None, dev, say)
+            out["setups_s"] = time.time() - t0
+        walls.report("[7, spawned] setups")
+        if cold:
+            say(tap.report(out["setups_s"]))
+        out["cold_setups"] = len(cold)
+        out["setup_card_s"] = sum(c[2] for c in tap.calls) / 1e3
+        results.put(("ok", out, dict(backend.LAUNCHES)))
+    except BaseException:
+        results.put(("error", traceback.format_exc(), None))
+        raise
+
+
+def start_prod_prepare():
+    """Spawn prod_prepare; returns (process, ready event, results queue)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    ready, results = ctx.Event(), ctx.Queue()
+    proc = ctx.Process(target=prod_prepare, args=(ready, results), name="prod-prepare")
+    proc.start()
+    return proc, ready, results
+
+
+def paused(proc):
+    """Context manager: ``proc`` stopped (SIGSTOP) while the block runs.
+    Beside the spawned structure build, phase 6's first K5 launch read 131
+    ms between its events where it reads 84 ms alone (an H100 80GB HBM3 at
+    700 W)."""
+    import contextlib
+    import signal
+
+    @contextlib.contextmanager
+    def stopped():
+        os.kill(proc.pid, signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            os.kill(proc.pid, signal.SIGCONT)
+
+    return stopped()
+
+
+def finish_prod_prepare(proc, ready, results):
+    """Let prod_prepare run its setups, wait for its result and its exit;
+    returns (timings, launches)."""
+    import queue
+
+    ready.set()
+    while True:
+        try:
+            status, out, launches = results.get(timeout=5)
+            break
+        except queue.Empty:
+            if not proc.is_alive():
+                raise RuntimeError(f"prod_prepare exited with code {proc.exitcode} and no result")
+    proc.join()
+    if status != "ok":
+        raise RuntimeError(f"prod_prepare failed:\n{out}")
+    return out, launches
+
+
+def phase_prod(dev, backend, prep, prep_launches):
+    """Phase 7: fl/prod.py's production run on the card, its structures and
+    setups from prod_prepare (``prep``: its timings); returns the launch
+    counts of run_prod_integration."""
+    import torch
+
+    from zkfl_tpu_torch.fl import prod
+    from zkfl_tpu_torch.groth16.engine import TorchEngine
+
+    log(f"  N={prod.PROD_N}, DIM={prod.PROD_DIM}, DEPTH={prod.PROD_DEPTH}, batch {prod.PROD_BATCH}; "
+        f"artifacts {PROD_CACHE}; spawned beside phases 2-5: structures {prep['structures_s']:.3f} s, "
+        f"then {prep['cold_setups']} cold setups in {prep['setups_s']:.3f} s "
+        f"({prep['setup_card_s']:.3f} s of it in the fixed-base chunks on the card); "
+        f"their launches {prep_launches}")
+    if prep["cold_setups"] and not all(prep_launches.get(k) for k in ("g1.padd", "g2.padd")):
+        raise AssertionError(f"the production setups launched no g1.padd or g2.padd: {prep_launches}")
+    backend.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    targets = structure_targets() + [(prod, "setup_cached"), (prod, "generate_dataset"),
+                                     (prod, "generate_witness"), (prod, "groth16_verify")]
+    with SetupTap(backend) as stap, MSMTap(backend) as mtap, \
+            WallTap(targets + setup_targets() + prove_targets()) as walls:
+        res = prod.run_prod_integration(cache_dir=PROD_CACHE, engine=TorchEngine(dev))
+    torch.cuda.synchronize()
+    launches = dict(backend.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    timings = res["timings"]
+    for name, secs in timings.items():
+        log(f"  {name:24s} {secs:9.3f} s")
+    walls.report("prod")
+    if stap.calls:
+        log(f"  {stap.report(timings['setups_s'])}")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB")
+    labels = ("balance", "v5", "balance", "v5")  # first proves, then steady ones
+    if [c[0] for c in mtap.calls] != ["g1", "g2"] * len(labels):
+        raise AssertionError(f"MSM calls {[c[:3] for c in mtap.calls]}, expected G1, G2 per proof")
+    report_msms(mtap, labels, backend, dev)
+    log(f"  launches {launches}")
+    log(f"  result {json.dumps({k: v for k, v in res.items() if k != 'timings'})}")
+    if not (res["balance_verified"] and res["v5_verified"]):
+        raise AssertionError(f"a production proof does not verify: {res}")
+    if not res["binding_ok"]:
+        raise AssertionError("the balance and v5 proofs do not bind the same root_D")
+    if res["constraints"] != PROD_CONSTRAINTS:
+        raise AssertionError(f"constraints {res['constraints']}, expected {PROD_CONSTRAINTS}")
+    missing = [name for name in PROD_PATH if not launches.get(name)]
+    if missing:
+        raise AssertionError(f"the production run never launched {missing}")
+    return launches
+
+
 # kernel op -> (source, the TPU kernel it replaces)
 KERNELS = {
     "fr.to_mont": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:374"),
@@ -829,7 +1197,7 @@ CHECK_ONLY = ("fr.mont_sqr", "fq.mont_sqr", "fr.add", "fr.sub", "fq.add", "fq.su
               "fq.from_mont", "fq.mont_mul_const", "fq.mul_sub_mul_const")
 
 
-def report_row(name, rows, launches):
+def report_row(name, rows, launches, paths):
     """One op of the kernels line.  fr.poseidon's row is phase 6's: card
     time and bound summed over the commitment's launches, plain time over
     the tapped states, each group of launches under "parts"."""
@@ -838,7 +1206,7 @@ def report_row(name, rows, launches):
     out = {"name": name, "route": "cuda", "source": f"zkfl_tpu_torch/csrc/{src}", "replaces": tpu,
            "launches": launches[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-           "library_ms": None}
+           "library_ms": None, "paths": paths}
     for extra in ("parts", "ladder_lanes", "ladder_ms"):
         if extra in row:
             out[extra] = row[extra]
@@ -870,55 +1238,77 @@ def main() -> int:
     log(f"  {json.dumps(info)}; max SM clock {sm_mhz:.0f} MHz: derived integer peak "
         f"{SMS * INT32_LANES * sm_mhz * 1e6 / 1e12:.2f} T multiply-adds/s")
 
-    log("[2] build")
-    t0 = time.time()
-    lib_path = backend.build()
-    backend.lib()
-    log(f"  {lib_path} in {time.time() - t0:.1f} s")
-    nvcc_s = {}
-    build_log = (lib_path.parent / "build.log").read_text()
-    for line in build_log.splitlines():
-        if line.startswith("# nvcc "):
-            what, secs = line[len("# nvcc "):].split(": ")
-            nvcc_s[what] = float(secs.split()[0])
-    for entry, regs, spills in kernel_stats.ptxas_report(build_log):
-        log(f"  ptxas {entry}: {regs} registers ({kernel_stats.blocks_per_sm(regs)} blocks of 128 "
-            f"threads fit an SM); {spills}")
-    for line in kernel_stats.product_sass_lines(lib_path):
-        log(f"  sass {line}")
-    log(f"  nvcc wall time per process: {nvcc_s}; the sources' compiles add up to "
-        f"{sum(v for k, v in nvcc_s.items() if k != 'link'):.1f} s")
+    # Phase 7's structure build is host Python for minutes: it runs in a
+    # spawned process beside phases 2-5 (stopped during phase 6, whose K5
+    # launches are timed without a card-side sleep in front), and its
+    # setups wait for phase 6 to end.
+    prep = start_prod_prepare()
+    try:
+        log("[2] build")
+        t0 = time.time()
+        lib_path = backend.build()
+        backend.lib()
+        log(f"  {lib_path} in {time.time() - t0:.1f} s")
+        nvcc_s = {}
+        build_log = (lib_path.parent / "build.log").read_text()
+        for line in build_log.splitlines():
+            if line.startswith("# nvcc "):
+                what, secs = line[len("# nvcc "):].split(": ")
+                nvcc_s[what] = float(secs.split()[0])
+        for entry, regs, spills in kernel_stats.ptxas_report(build_log):
+            log(f"  ptxas {entry}: {regs} registers ({kernel_stats.blocks_per_sm(regs)} blocks of 128 "
+                f"threads fit an SM); {spills}")
+        for line in kernel_stats.product_sass_lines(lib_path):
+            log(f"  sass {line}")
+        log(f"  nvcc wall time per process: {nvcc_s}; the sources' compiles add up to "
+            f"{sum(v for k, v in nvcc_s.items() if k != 'link'):.1f} s")
 
-    log("[3] kernels vs plain versions")
-    t0 = time.time()
-    rows = phase_kernels(dev, backend, sm_mhz)
-    log(f"  phase 3 in {time.time() - t0:.1f} s")
+        log("[3] kernels vs plain versions")
+        t0 = time.time()
+        rows = phase_kernels(dev, backend, sm_mhz)
+        log(f"  phase 3 in {time.time() - t0:.1f} s")
 
-    log("[4] MICRO_CONFIG balance proof parity")
-    t0 = time.time()
-    phase_micro_parity(dev, artifacts)
-    log(f"  phase 4 in {time.time() - t0:.1f} s")
+        log("[4] MICRO_CONFIG balance setup and proof parity")
+        t0 = time.time()
+        phase_micro_parity(dev, artifacts, backend)
+        log(f"  phase 4 in {time.time() - t0:.1f} s")
 
-    log("[5] REFERENCE_CONFIG round")
-    t0 = time.time()
-    round_launches = phase_round(dev, artifacts, backend)
-    log(f"  phase 5 in {time.time() - t0:.1f} s")
-    for name in sorted(round_launches):
-        log(f"  launches {name:24s} {round_launches[name]}")
+        log("[5] REFERENCE_CONFIG round")
+        t0 = time.time()
+        setup_launches, round_launches = phase_round(dev, artifacts, backend)
+        log(f"  phase 5 in {time.time() - t0:.1f} s")
+        for name in sorted(round_launches):
+            log(f"  launches {name:24s} {round_launches[name]}")
 
-    log("[6] dataset commitment on the card")
-    t0 = time.time()
-    commit_launches, rows["fr.poseidon"] = phase_commitment(dev, backend, sm_mhz)
-    log(f"  phase 6 in {time.time() - t0:.1f} s")
+        log("[6] dataset commitment on the card")
+        t0 = time.time()
+        with paused(prep[0]):
+            commit_launches, rows["fr.poseidon"] = phase_commitment(dev, backend, sm_mhz)
+        log(f"  phase 6 in {time.time() - t0:.1f} s")
 
-    launches = {name: round_launches.get(name, 0) + commit_launches.get(name, 0) for name in KERNELS}
+        log("[7] production run: balance N=128 (2^19 domain) + sgd_step_v5")
+        t0 = time.time()
+        prep_out, prep_launches = finish_prod_prepare(*prep)
+        log(f"  waited {time.time() - t0:.1f} s for the spawned structures and setups")
+        prod_launches = phase_prod(dev, backend, prep_out, prep_launches)
+        log(f"  phase 7 in {time.time() - t0:.1f} s")
+    finally:
+        if prep[0].is_alive():
+            prep[0].terminate()
+            prep[0].join()
+
+    setups = collections.Counter(setup_launches) + collections.Counter(prep_launches)
+    by_path = {"setup": setups, "round": round_launches, "commit": commit_launches,
+               "prod": prod_launches}
+    paths = {name: {k: v.get(name, 0) for k, v in by_path.items()} for name in KERNELS}
+    launches = {name: sum(paths[name].values()) for name in KERNELS}
     for name in CHECK_ONLY:
         launches[name] = rows[name]["check_launches"]
     missing = [name for name in KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched: {missing}")
 
-    report = [report_row(name, rows, launches) for name in KERNELS]
+    report = [report_row(name, rows, launches, paths[name]) for name in KERNELS]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -118,7 +118,7 @@ def test_profile_and_setup_cache_match_jax(tmp_path):
     # under zkfl_tpu's name the port's file is what zkfl_tpu's setup_cached
     # loads (a miss would run a setup and write a third file).
     cs = _toy_circuit(3, 5)
-    keys = setup_cached(cs, str(tmp_path), seed="cache-seed", domain=8)
+    keys = setup_cached(cs, str(tmp_path), seed="cache-seed", domain=8, device=None)
     (ours,) = tmp_path.iterdir()
     assert ours.name.startswith("toy_") and ours.name.endswith(".torch.zkey.pkl")
     shutil.copy(ours, tmp_path / ours.name.replace(".torch.zkey.pkl", ".zkey.pkl"))
@@ -126,14 +126,15 @@ def test_profile_and_setup_cache_match_jax(tmp_path):
     assert len(list(tmp_path.iterdir())) == 2
     # the keys equal zkfl_tpu's as integers, and load back from the cache
     assert key_ints(keys) == key_ints(groth16_setup(cs, seed="cache-seed", device=False, domain=8))
-    assert key_ints(setup_cached(cs, str(tmp_path), seed="cache-seed", domain=8)) == key_ints(keys)
+    assert key_ints(setup_cached(cs, str(tmp_path), seed="cache-seed", domain=8, device=None)) == key_ints(keys)
     assert keys[0].domain == 8
 
 
 def test_port_runs_without_jax():
     script = textwrap.dedent("""
         import sys, torch
-        import zkfl_tpu_torch.fl.simulation
+        import zkfl_tpu_torch.fl.prod, zkfl_tpu_torch.fl.simulation
+        import zkfl_tpu_torch.groth16.device_setup, zkfl_tpu_torch.r1cs.compiled
         from zkfl_tpu_torch.field.bn254 import FR
         from zkfl_tpu_torch.groth16.engine import TorchEngine
         from zkfl_tpu_torch.groth16.prover import groth16_prove
@@ -148,7 +149,7 @@ def test_port_runs_without_jax():
         a = cs.private_input("a", 3)
         b = cs.private_input("b", 4)
         cs.enforce_equal(cs.mul(a, b), out)
-        pk, vk = groth16_setup(cs, seed="nojax")
+        pk, vk = groth16_setup(cs, seed="nojax", device=None)
         proof = groth16_prove(pk, cs, engine=TorchEngine(torch.device("cpu")))
         assert groth16_verify(vk, proof)
         assert poseidon_hash_ints([[1, 2], [3, 4]], device="cpu") == [poseidon([1, 2]), poseidon([3, 4])]

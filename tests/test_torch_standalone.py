@@ -61,6 +61,8 @@ def test_no_import_of_zkfl_tpu_or_jax(rel):
 
 def test_port_files_found():
     assert "zkfl_tpu_torch/ops/poseidon.py" in PORT_FILES
+    for rel in ("groth16/device_setup.py", "r1cs/compiled.py", "fl/prod.py"):
+        assert f"zkfl_tpu_torch/{rel}" in PORT_FILES
     assert len(PORT_FILES) > 40
 
 
@@ -101,7 +103,7 @@ def key_ints(obj):
 
 
 def test_groth16_setup_matches_zkfl_tpu():
-    ours = groth16_setup(_toy(ConstraintSystem, 3, 5), seed="standalone")
+    ours = groth16_setup(_toy(ConstraintSystem, 3, 5), seed="standalone", device=None)
     theirs = zk_setup(_toy(ZkCS, 3, 5), seed="standalone", device=False)
     assert key_ints(ours) == key_ints(theirs)
 
@@ -112,7 +114,7 @@ def test_host_engine_matches_zkfl_tpu():
     evals = ours.matrix_evals(cs.constraints, cs.witness, 8)
     assert evals == theirs.matrix_evals(cs.constraints, cs.witness, 8)
     assert ours.compute_h(*evals) == theirs.compute_h(*evals)
-    pk, _ = groth16_setup(cs, seed="engine")
+    pk, _ = groth16_setup(cs, seed="engine", device=None)
     assert ours.msm_g1(pk.a_query, cs.witness) == theirs.msm_g1(pk.a_query, cs.witness)
     assert key_ints(ours.msm_g2(pk.b2_query, cs.witness)) == \
         key_ints(theirs.msm_g2(pk.b2_query, cs.witness))

@@ -1,12 +1,14 @@
-"""Round prover on TorchEngine (counterpart of zkfl_tpu/fl/prover.py).
+"""Round prover (counterpart of zkfl_tpu/fl/prover.py).
 
 One trusted setup per circuit, shared by all clients and cached on disk
 (the reference skips compile/setup when .r1cs/.zkey exist,
-full_system_simulation.mjs:698-739).  The three circuits pad to one
-``PipelineProfile`` and their setups are built at its domain, so every
-proof of a round runs through one set of device shapes; cold setups run in
-parallel processes.  Batched proving goes through ``groth16_prove_many``
-(client-batch data parallelism); verification is the native pairing check.
+full_system_simulation.mjs:698-739).  On a TorchEngine the three circuits
+pad to one ``PipelineProfile`` and their setups are built at its domain on
+the engine's device, so every proof of a round runs through one set of
+device shapes, and batched proving goes through ``groth16_prove_many``
+(client-batch data parallelism).  A HostEngine proves stage by stage in
+pure Python, one client at a time, on setups from the pure-Python ladder.
+Verification is the native pairing check.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ from .config import FLConfig
 
 class RoundProver:
     """The three circuit structures + proving/verifying keys of one FL
-    configuration, proved on a TorchEngine."""
+    configuration, proved on ``engine`` (a TorchEngine or a HostEngine)."""
 
-    def __init__(self, config: FLConfig, engine: TorchEngine, cache_dir: Optional[str] = None):
+    def __init__(self, config: FLConfig, engine, cache_dir: Optional[str] = None):
         self.cfg = config
         self.engine = engine
         cache = cache_dir or config.artifacts_dir
@@ -35,9 +37,12 @@ class RoundProver:
         self.training_cs = build_structure(config.training_params)
         self.secagg_cs = build_structure(config.secagg_params)
         structures = [self.balance_cs, self.training_cs, self.secagg_cs]
-        if engine.profile is None:
-            engine.profile = PipelineProfile.cover(structures)
-        keys = setup_cached_many(structures, cache, domain=engine.profile.domain)
+        domain = device = None  # HostEngine: natural domains, the pure-Python ladder
+        if isinstance(engine, TorchEngine):
+            if engine.profile is None:
+                engine.profile = PipelineProfile.cover(structures)
+            domain, device = engine.profile.domain, engine.device
+        keys = setup_cached_many(structures, cache, domain=domain, device=device)
         (self.balance_pk, self.balance_vk), (self.training_pk, self.training_vk), \
             (self.secagg_pk, self.secagg_vk) = keys
 
@@ -52,6 +57,10 @@ class RoundProver:
         return groth16_prove(self.secagg_pk, self.secagg_cs, witness, engine=self.engine)
 
     # -- batched proving (client-batch data parallelism) ------------------
+    @property
+    def can_batch(self) -> bool:
+        return hasattr(self.engine, "fused_msms")
+
     def prove_balance_many(self, witnesses):
         return groth16_prove_many(self.balance_pk, self.balance_cs, witnesses, self.engine)
 

@@ -4,7 +4,7 @@ secagg) proofs, server-side verification + binding + aggregation
 `node tests/full_system_simulation.mjs`, runSimulation :1244-1395).
 
 Run:  python -m zkfl_tpu_torch.fl.simulation [--micro] [--clients N]
-                                              [--device cuda|cpu]
+                                              [--device cuda|cpu | --host-engine]
 Exits non-zero unless every proof of the round verified.
 """
 
@@ -17,7 +17,7 @@ from dataclasses import replace
 from typing import Dict, Optional
 
 from .. import backend
-from ..groth16.engine import TorchEngine
+from ..groth16.engine import HostEngine, TorchEngine
 from ..poseidon.reference import poseidon
 from .client import Client, SharedLCG
 from .config import FLConfig, MICRO_CONFIG, REFERENCE_CONFIG
@@ -39,7 +39,7 @@ def simulate_key_exchange(num_clients: int) -> Dict[int, Dict[int, int]]:
 
 def run_round(
     config: FLConfig = REFERENCE_CONFIG,
-    engine: Optional[TorchEngine] = None,
+    engine=None,
     prover: Optional[RoundProver] = None,
     verbose: bool = True,
     batch_clients: Optional[bool] = None,
@@ -47,10 +47,12 @@ def run_round(
     """Execute one complete verifiable FL round; returns (server, timings).
 
     Without ``prover`` one is built on ``engine`` (default: a TorchEngine on
-    the first CUDA card).  With ``batch_clients`` (default: on for more
-    than one client) each proof phase generates every client's witness and
-    proves them in ONE batched device pipeline instead of the reference's
-    client-at-a-time loop (full_system_simulation.mjs:1298-1343).
+    the first CUDA card; a HostEngine proves in pure Python).  With
+    ``batch_clients`` (default: on for more than one client when the
+    engine has the fused pipeline) each proof phase generates every
+    client's witness and proves them in ONE batched device pipeline instead
+    of the reference's client-at-a-time loop
+    (full_system_simulation.mjs:1298-1343).
     """
     t_start = time.time()
     timings = {}
@@ -69,7 +71,7 @@ def run_round(
     server = Server(config, prover)
     clients = [Client(i, config, prover) for i in range(1, config.num_clients + 1)]
     if batch_clients is None:
-        batch_clients = config.num_clients > 1
+        batch_clients = prover.can_batch and config.num_clients > 1
     done("setup")
 
     # Phase 0/1: model init, dataset generation, registration.
@@ -145,12 +147,14 @@ def main(argv=None) -> int:
     ap.add_argument("--micro", action="store_true", help="micro circuit dims")
     ap.add_argument("--clients", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda or cpu (default cuda)")
+    ap.add_argument("--host-engine", action="store_true", help="pure-Python prover engine")
     args = ap.parse_args(argv)
 
     cfg = MICRO_CONFIG if args.micro else REFERENCE_CONFIG
     if args.clients:
         cfg = replace(cfg, num_clients=args.clients)
-    server, _ = run_round(cfg, engine=TorchEngine(backend.device(args.device)))
+    engine = HostEngine() if args.host_engine else TorchEngine(backend.device(args.device))
+    server, _ = run_round(cfg, engine=engine)
     summary = server.get_summary()
     if not summary["all_passed"]:
         print(f"round failed: {summary}", file=sys.stderr)

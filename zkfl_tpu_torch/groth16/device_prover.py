@@ -23,6 +23,7 @@ from ..ops import point_kernels as pk_ops
 from ..ops.limb_kernels import FRK
 from ..ops.qap import DeviceMatrices, compute_h, matrix_evals
 from ..r1cs.builder import ConstraintSystem
+from ..r1cs.compiled import n_constraints
 from .setup import ProvingKey
 
 
@@ -39,10 +40,17 @@ class PipelineProfile:
 
     @staticmethod
     def cover(structures: Sequence[ConstraintSystem]) -> "PipelineProfile":
-        """Smallest profile covering every given structure-mode circuit."""
+        """Smallest profile covering every given circuit (structure-mode
+        ConstraintSystems and CompiledCircuits alike)."""
+
+        def nnz_of(cs):
+            if getattr(cs, "is_compiled", False):
+                return cs.nnz
+            return sum(len(abc[k]) for abc in cs.constraints for k in range(3))
+
         m_pad = max(cs.n_wires for cs in structures)
-        domain = max(domain_size_for(len(cs.constraints) + 1) for cs in structures)
-        nnz = max(sum(len(abc[k]) for abc in cs.constraints for k in range(3)) for cs in structures)
+        domain = max(domain_size_for(n_constraints(cs) + 1) for cs in structures)
+        nnz = max(nnz_of(cs) for cs in structures)
         return PipelineProfile(m_pad=m_pad, domain=domain, nnz_pad=nnz)
 
 
@@ -85,15 +93,18 @@ def _prove_msms_impl(cfg, n_pub: int, g1_pts, b2_pts, rows, cols, coeffs, w_std)
 
 
 class DeviceProver:
-    """Per-circuit proving context with the proving key resident on ``device``.
+    """Per-circuit proving context with the proving key resident on
+    ``device``; ``structure`` is a structure-mode ConstraintSystem or a
+    CompiledCircuit (r1cs/compiled.py).
 
     With a ``PipelineProfile`` the point queries, witness and COO matrices
     pad to the profile's shapes (pk.domain must equal profile.domain)."""
 
     def __init__(self, pk: ProvingKey, structure: ConstraintSystem, device: torch.device,
                  profile: Optional[PipelineProfile] = None):
-        if getattr(structure, "is_compiled", False) or not structure.constraints:
-            raise ValueError("DeviceProver needs the structure-mode CS")
+        compiled = getattr(structure, "is_compiled", False)
+        if not compiled and not structure.constraints:
+            raise ValueError("DeviceProver needs the structure-mode CS or a CompiledCircuit")
         if profile is not None and pk.domain != profile.domain:
             raise ValueError(
                 f"setup domain {pk.domain} != profile domain {profile.domain}"
@@ -125,10 +136,11 @@ class DeviceProver:
             dim=2,
         )  # [3, 8, 4, n_max]
         self.b2_pts = pk_ops.g2_to_device(pad_pts(pk.b2_query), device)[:, :, :, None, :]
-        dm = DeviceMatrices(
-            structure.constraints, self.domain, device,
-            nnz_pad=profile.nnz_pad if profile else None,
-        )
+        nnz_pad = profile.nnz_pad if profile else None
+        if compiled:
+            dm = DeviceMatrices.from_coo(structure, self.domain, device, nnz_pad=nnz_pad)
+        else:
+            dm = DeviceMatrices(structure.constraints, self.domain, device, nnz_pad=nnz_pad)
         self.rows, self.cols, self.coeffs = dm.rows, dm.cols, dm.coeffs
 
     def cfg_for(self, batch: int):

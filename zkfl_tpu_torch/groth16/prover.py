@@ -196,7 +196,8 @@ def groth16_prove(
     blinding: Optional[Tuple[int, int]] = None,
 ) -> Proof:
     """Prove `witness` against the circuit `structure` (a CS built in
-    structure mode, carrying the constraint matrices).  When `witness` is
+    structure mode, carrying the constraint matrices, or a CompiledCircuit,
+    which needs an engine with `fused_msms`).  When `witness` is
     None the structure's own values are used.  A witness produced by the
     fast value-only pass (circuits.generate_witness) must be passed
     explicitly — its CS records no constraints.
@@ -211,10 +212,16 @@ def groth16_prove(
         from .engine import HostEngine
 
         engine = HostEngine()
-    if not structure.constraints:
+    compiled = getattr(structure, "is_compiled", False)
+    if not compiled and not structure.constraints:
         raise ValueError(
             "groth16_prove needs the structure-mode ConstraintSystem "
             "(witness-only CS has no constraint matrices)"
+        )
+    if compiled and not hasattr(engine, "fused_msms"):
+        raise ValueError(
+            "CompiledCircuit proving needs the fused TorchEngine "
+            "(host stage-by-stage path requires dict-form constraints)"
         )
     witness = list(witness) if witness is not None else structure.witness
     n_pub = pk.n_pub

@@ -26,8 +26,11 @@ import pickle
 from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
+import torch
+
+from .. import backend
 from ..field.bn254 import FR, domain_size_for, fr_batch_inv, fr_inv, fr_nth_root
 from ..field.curve import (
     FixedBaseG2,
@@ -38,6 +41,11 @@ from ..field.curve import (
     g1_to_jacobian,
 )
 from ..r1cs.builder import ConstraintSystem
+from ..r1cs.compiled import n_constraints
+
+# Where the fixed-base batches run: a torch device (or its name), or None
+# for the pure-Python ladder.
+Device = Union[torch.device, str, None]
 
 
 class FixedBaseG1:
@@ -180,9 +188,14 @@ def groth16_setup(
     seed: str = "zkfl-dev",
     domain: Optional[int] = None,
     h_basis: str = "monomial",
+    device: Device = "cuda",
 ) -> Tuple[ProvingKey, VerifyingKey]:
-    """Phase-1+2 setup with the pure-Python windowed fixed-base ladders
-    (the device fixed-base batches are not ported yet).
+    """Phase-1+2 setup.  With a ``device`` (default the first CUDA card,
+    which must exist) every fixed-base encryption batch runs as one table
+    gather and five levels of point additions on that device
+    (groth16/device_setup.py: K4/K6 on a card, their plain torch versions
+    on the CPU); ``device=None`` keeps the pure-Python ladder, the oracle.
+    Both give the same keys.
 
     `domain` overrides the evaluation-domain size (must be a power of two
     >= the natural size).  A Groth16 QAP over a larger domain is equally
@@ -220,24 +233,42 @@ def groth16_setup(
     else:
         raise ValueError(f"unknown h_basis {h_basis!r}")
 
-    fb1 = FixedBaseG1()
-    fb2 = FixedBaseG2()
+    if device is not None:
+        from .device_setup import batch_fixed_mul_g1, batch_fixed_mul_g2
 
-    def e1(scalar):
-        return fb1.mul(scalar) if scalar % FR else None
+        dev = backend.device(str(device))
+        n_a, n_ic, n_c = m, len(ic_scalars), len(c_scalars)
+        all_g1 = batch_fixed_mul_g1(
+            a_t + b_t + ic_scalars + c_scalars + h_scalars + [alpha, beta, delta], dev
+        )
+        a_query = all_g1[:n_a]
+        b1_query = all_g1[n_a : 2 * n_a]
+        ic = all_g1[2 * n_a : 2 * n_a + n_ic]
+        c_query = all_g1[2 * n_a + n_ic : 2 * n_a + n_ic + n_c]
+        h_query = all_g1[2 * n_a + n_ic + n_c : -3]
+        alpha1, beta1, delta1 = all_g1[-3:]
+        all_g2 = batch_fixed_mul_g2(b_t + [beta, delta, gamma], dev)
+        b2_query = all_g2[:-3]
+        beta2, delta2, gamma2 = all_g2[-3:]
+    else:
+        fb1 = FixedBaseG1()
+        fb2 = FixedBaseG2()
 
-    def e2(scalar):
-        return fb2.mul(scalar) if scalar % FR else None
+        def e1(scalar):
+            return fb1.mul(scalar) if scalar % FR else None
 
-    a_query = [e1(a_t[i]) for i in range(m)]
-    b1_query = [e1(b_t[i]) for i in range(m)]
-    b2_query = [e2(b_t[i]) for i in range(m)]
-    ic = [e1(s) for s in ic_scalars]
-    c_query = [e1(s) for s in c_scalars]
-    h_query = [e1(s) for s in h_scalars]
+        def e2(scalar):
+            return fb2.mul(scalar) if scalar % FR else None
 
-    alpha1, beta1, delta1 = fb1.mul(alpha), fb1.mul(beta), fb1.mul(delta)
-    beta2, delta2, gamma2 = fb2.mul(beta), fb2.mul(delta), fb2.mul(gamma)
+        a_query = [e1(a_t[i]) for i in range(m)]
+        b1_query = [e1(b_t[i]) for i in range(m)]
+        b2_query = [e2(b_t[i]) for i in range(m)]
+        ic = [e1(s) for s in ic_scalars]
+        c_query = [e1(s) for s in c_scalars]
+        h_query = [e1(s) for s in h_scalars]
+
+        alpha1, beta1, delta1 = fb1.mul(alpha), fb1.mul(beta), fb1.mul(delta)
+        beta2, delta2, gamma2 = fb2.mul(beta), fb2.mul(delta), fb2.mul(gamma)
 
     pk = ProvingKey(
         n_pub=n_pub,
@@ -269,28 +300,39 @@ def groth16_setup(
 # (full_system_simulation.mjs:698-739: compile/setup skipped when cached).
 # The fingerprint is zkfl_tpu's; the file name has a suffix of its own, so
 # a key pickled by the port only ever unpickles into the port's classes.
-# ``setup_cached_many`` runs several cold setups in parallel processes.
+# The keys do not depend on the device that computed them, so neither does
+# the file name.  ``setup_cached_many`` runs several cold ladder setups in
+# parallel processes.
 # ---------------------------------------------------------------------------
 
 
-def cache_path(cs: ConstraintSystem, cache_dir: str, seed: str = "zkfl-dev",
+def cache_path(cs, cache_dir: str, seed: str = "zkfl-dev",
                domain: Optional[int] = None) -> Path:
+    """The cache file of ``cs`` (a structure-mode ConstraintSystem or a
+    CompiledCircuit: both fingerprint alike)."""
     fingerprint = hashlib.sha256(
-        f"{cs.name}|{len(cs.constraints)}|{cs.n_wires}|{cs.n_pub}|{seed}"
+        f"{cs.name}|{n_constraints(cs)}|{cs.n_wires}|{cs.n_pub}|{seed}"
         f"|{domain or 0}".encode()
     ).hexdigest()[:16]
     return Path(cache_dir) / f"{cs.name}_{fingerprint}.torch.zkey.pkl"
 
 
-def setup_cached(cs: ConstraintSystem, cache_dir: str, seed: str = "zkfl-dev",
-                 domain: Optional[int] = None):
-    """(pk, vk) for ``cs``: loaded from the cache, else set up and stored."""
+def setup_cached(cs, cache_dir: str, seed: str = "zkfl-dev",
+                 domain: Optional[int] = None, device: Device = "cuda"):
+    """(pk, vk) for ``cs``: loaded from the cache, else set up on ``device``
+    (see groth16_setup) and stored.  A cache miss for a CompiledCircuit
+    raises ValueError: the setup needs the structure-mode constraints."""
     path = cache_path(cs, cache_dir, seed, domain)
     if path.exists():
         with open(path, "rb") as f:
             return pickle.load(f)
+    if getattr(cs, "is_compiled", False):
+        raise ValueError(
+            f"zkey cache miss for {cs.name} and only the compiled COO form "
+            "is available — rebuild the full structure to run the setup"
+        )
     path.parent.mkdir(parents=True, exist_ok=True)
-    keys = groth16_setup(cs, seed, domain=domain)
+    keys = groth16_setup(cs, seed, domain=domain, device=device)
     tmp = path.with_suffix(f".tmp{os.getpid()}")
     with open(tmp, "wb") as f:
         pickle.dump(keys, f)
@@ -299,19 +341,22 @@ def setup_cached(cs: ConstraintSystem, cache_dir: str, seed: str = "zkfl-dev",
 
 
 def _setup_into_cache(cs, cache_dir, seed, domain) -> None:
-    setup_cached(cs, cache_dir, seed, domain)  # the keys stay in the worker
+    setup_cached(cs, cache_dir, seed, domain, device=None)  # the keys stay in the worker
 
 
 def setup_cached_many(structures: Sequence[ConstraintSystem], cache_dir: str,
-                      seed: str = "zkfl-dev", domain: Optional[int] = None) -> list:
-    """``setup_cached`` for several circuits; cold ones run in parallel
-    spawned processes, one per circuit up to the CPU count (each setup is
-    single-threaded Python)."""
-    cold = [cs for cs in structures if not cache_path(cs, cache_dir, seed, domain).exists()]
-    workers = min(len(cold), os.cpu_count() or 1)
-    if workers > 1:
-        ctx = multiprocessing.get_context("spawn")
-        with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
-            list(pool.map(_setup_into_cache, cold, [cache_dir] * len(cold),
-                          [seed] * len(cold), [domain] * len(cold)))
-    return [setup_cached(cs, cache_dir, seed, domain) for cs in structures]
+                      seed: str = "zkfl-dev", domain: Optional[int] = None,
+                      device: Device = "cuda") -> list:
+    """``setup_cached`` for several circuits.  Cold setups on a device run
+    here, one after another; cold ladder setups (``device=None``) run in
+    parallel spawned processes, one per circuit up to the CPU count (each
+    is single-threaded Python)."""
+    if device is None:
+        cold = [cs for cs in structures if not cache_path(cs, cache_dir, seed, domain).exists()]
+        workers = min(len(cold), os.cpu_count() or 1)
+        if workers > 1:
+            ctx = multiprocessing.get_context("spawn")
+            with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+                list(pool.map(_setup_into_cache, cold, [cache_dir] * len(cold),
+                              [seed] * len(cold), [domain] * len(cold)))
+    return [setup_cached(cs, cache_dir, seed, domain, device) for cs in structures]

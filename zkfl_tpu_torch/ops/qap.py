@@ -17,7 +17,7 @@ import torch
 
 from ..field.bn254 import FR, FR_GENERATOR, fr_inv, fr_nth_root
 
-from ..field.limbs import N_LIMBS
+from ..field.limbs import N_LIMBS, from_u16_limbs
 from .limb_kernels import FRK
 
 
@@ -121,7 +121,6 @@ class DeviceMatrices:
     padding terms (row 0, wire 0) extend the stream to ``nnz_pad``."""
 
     def __init__(self, constraints, domain: int, device: torch.device, nnz_pad=None):
-        self.domain = domain
         rows, cols, coeffs = [], [], []
         for which in range(3):
             for j, abc in enumerate(constraints):
@@ -129,16 +128,33 @@ class DeviceMatrices:
                     rows.append(which * domain + j)
                     cols.append(w)
                     coeffs.append(coef % FR)
+        self._upload(domain, np.asarray(rows, np.int64), np.asarray(cols, np.int64),
+                     FRK.pack(coeffs), device, nnz_pad)
+
+    @classmethod
+    def from_coo(cls, compiled, domain: int, device: torch.device, nnz_pad=None) -> "DeviceMatrices":
+        """From a CompiledCircuit's prepacked COO arrays, in numpy end to end
+        (prod-dims circuits have about 10 M terms)."""
+        self = cls.__new__(cls)
+        self._upload(domain, compiled.which.astype(np.int64) * domain + compiled.row,
+                     compiled.col.astype(np.int64), from_u16_limbs(compiled.coeffs), device, nnz_pad)
+        return self
+
+    def _upload(self, domain: int, rows: np.ndarray, cols: np.ndarray, coeffs: np.ndarray,
+                device: torch.device, nnz_pad) -> None:
+        """rows, cols int64 [nnz] and coeffs int32 [8, nnz] -> padded device tensors."""
+        nnz = rows.shape[0]
         if nnz_pad is not None:
-            if nnz_pad < len(rows):
-                raise ValueError(f"nnz_pad {nnz_pad} < nnz {len(rows)}")
-            pad = nnz_pad - len(rows)
-            rows += [0] * pad
-            cols += [0] * pad
-            coeffs += [0] * pad
-        self.rows = torch.tensor(rows, dtype=torch.int64, device=device)
-        self.cols = torch.tensor(cols, dtype=torch.int64, device=device)
-        self.coeffs = _dev(FRK.pack(coeffs), device)
+            if nnz_pad < nnz:
+                raise ValueError(f"nnz_pad {nnz_pad} < nnz {nnz}")
+            pad = nnz_pad - nnz
+            rows = np.concatenate([rows, np.zeros(pad, np.int64)])
+            cols = np.concatenate([cols, np.zeros(pad, np.int64)])
+            coeffs = np.concatenate([coeffs, np.zeros((N_LIMBS, pad), np.int32)], axis=1)
+        self.domain = domain
+        self.rows = _dev(rows, device)
+        self.cols = _dev(cols, device)
+        self.coeffs = _dev(coeffs, device)
 
 
 def matrix_evals(rows, cols, coeffs, w_mont: torch.Tensor, domain: int) -> torch.Tensor:
