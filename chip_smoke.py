@@ -31,6 +31,8 @@ nothing of zkfl_tpu.  Phases (any failure raises and exits non-zero):
      verifier, masks cancel; every kernel of the path launched, and no
      fq.add / fq.sub / fq.mont_mul; each G1 and G2 MSM's wall time, and the
      card time of its point kernels, its launches replayed at their shapes;
+     the widest launch of each kernel, the setups' folds apart, held
+     against its plain version on 2^12 seeded lanes;
   6. a client's dataset commitment on the card: 2^20 samples of 16 features
      and a label, VectorHash per sample and a depth-20 Poseidon Merkle tree;
      each K5 launch of it timed by CUDA events in that run, and 2^12 of its
@@ -39,16 +41,18 @@ nothing of zkfl_tpu.  Phases (any failure raises and exits non-zero):
      the device root; at depth 12 the root equals the native host tree's;
   7. the production run, fl/prod.py on the card: the balance proof at
      N=128, DIM=16, DEPTH=7 (357,764 constraints, a 2^19 domain) and the
-     sgd_step_v5 proof (25,858 constraints).  Where build/zkfl_prod_artifacts
-     is empty, a process spawned before phase 2 builds both structures in
-     Python beside phases 2-5 and caches their COO forms, then, after phase
-     6, sets them up on the card (fl/prod.py's cold path; its time and the
-     host/card split printed); run_prod_integration then runs from those
-     caches: both proofs verify natively and bind the same root_D; every
-     timing of its result, peak card memory, each MSM's wall and its point
-     kernels' card time, and the time split of each step.
+     sgd_step_v5 proof (25,858 constraints), run twice.  First
+     instrumented: where build/zkfl_prod_artifacts is empty, it builds
+     both structures in Python and sets them up on the card (the host/card
+     split printed); the time split of each step, each MSM's wall and its
+     point kernels' card time, and the widest launch of each kernel (the
+     setups' folds apart) held against its plain version on 2^12 seeded
+     lanes.  Then untapped, from those caches, as a user runs it: every
+     timing of its result and peak card memory.  Both runs' proofs verify
+     natively and bind the same root_D.
 fr.poseidon's row in the kernel report is phase 6's launches; each row's
-"paths" splits its launches by phase (setup: phase 5's cold setups).
+"paths" splits its launches by phase (setup: the cold setups of phases 5
+and 7; prod: phase 7's untapped run).
 The last two lines are the kernel report and the device line, both JSON.
 """
 
@@ -534,19 +538,17 @@ class SetupTap:
 class WallTap:
     """While active, wraps the given functions ((owner, attribute) pairs: a
     module's function, a class's method or static method): the card
-    synchronised before and after each call (unless ``sync`` is false: host
-    code in a process that must not touch the card yet), the host wall time
-    summed per function, nested tapped calls included in their callers'
-    time."""
+    synchronised before and after each call, the host wall time summed per
+    function, nested tapped calls included in their callers' time."""
 
-    def __init__(self, targets, sync: bool = True):
-        self.targets, self.sync = targets, sync
+    def __init__(self, targets):
+        self.targets = targets
         self.ms, self.calls = collections.Counter(), collections.Counter()
 
     def __enter__(self):
         import torch
 
-        sync = torch.cuda.synchronize if self.sync else (lambda: None)
+        sync = torch.cuda.synchronize
         self.saved = []
         for owner, attr in self.targets:
             raw = owner.__dict__[attr]
@@ -573,6 +575,116 @@ class WallTap:
     def report(self, what: str) -> None:
         for label, ms in self.ms.items():
             log(f"  {what} split {label:36s} {self.calls[label]:5d} calls {ms:11.1f} ms")
+
+
+CHECK_LANES = 1 << 12    # lanes of a tapped launch held against the plain version
+
+
+def lane_slice(x, lead: int, flat):
+    """The lanes ``flat`` (indices into x's batch dims, flattened as the
+    wrappers flatten them) of x [*lead, *B]: a copy, [*lead, len(flat)]."""
+    idx, rem = [], flat
+    for size in reversed(x.shape[lead:]):
+        idx.append(rem % size)
+        rem = rem // size
+    return x[(slice(None),) * lead + tuple(reversed(idx))]
+
+
+class LaunchCheck:
+    """While active, wraps the kernel wrappers of the setup and prove paths
+    (TorchField._ew, which launches every K1 op, TorchField.butterfly and
+    normalize_raw; the G1 and G2 padd and pdbl of ops/msm.py) and keeps,
+    for each op and context ("fold" inside a setup's fixed-base chunk,
+    "path" elsewhere), its widest launch on the card: CHECK_LANES
+    consecutive lanes (all, where there are fewer) of its inputs from a
+    seeded offset, and the same lanes of its output.  Copies are made only
+    for a launch wider than the widest so far.  ``verify`` holds each
+    against the op's plain version on those inputs, exactly."""
+
+    def __init__(self, seed):
+        import random
+
+        self.rng = random.Random(seed)
+        self.widest = {}                       # (op, context) -> (lanes, plain, inputs, outputs)
+        self.context = "path"
+
+    def keep(self, name, lead, tensors, call, plain):
+        """call() (the wrapper), keeping its lanes if it is the widest
+        launch of ``name`` in this context so far."""
+        import torch
+
+        lanes = 1
+        for size in tensors[0].shape[lead:]:
+            lanes *= size
+        key = (name, self.context)
+        if not tensors[0].is_cuda or lanes <= self.widest.get(key, (0,))[0]:
+            return call()
+        k = min(lanes, CHECK_LANES)
+        off = self.rng.randrange(lanes - k + 1)
+        flat = torch.arange(off, off + k, device=tensors[0].device)
+        xs = [lane_slice(t, lead, flat) for t in tensors]
+        out = call()
+        ys = tuple(lane_slice(o, lead, flat) for o in (out if isinstance(out, tuple) else (out,)))
+        self.widest[key] = (lanes, plain, xs, ys)
+        return out
+
+    def __enter__(self):
+        from zkfl_tpu_torch.groth16 import device_setup
+        from zkfl_tpu_torch.ops import msm
+        from zkfl_tpu_torch.ops import point_kernels as pk
+        from zkfl_tpu_torch.ops.limb_kernels import TorchField
+
+        ew, bfly, norm = TorchField._ew, TorchField.butterfly, TorchField.normalize_raw
+        fixed_mul, keep = device_setup._fixed_mul, self.keep
+
+        def tapped_ew(F, op, a, b=None, c=None, k=None):
+            consts = [] if k is None else [k]
+            return keep(f"{F.name}.{op}", 1, [t for t in (a, b, c) if t is not None],
+                        lambda: ew(F, op, a, b, c, k),
+                        lambda *xs: getattr(F, f"{op}_plain")(*xs, *consts))
+
+        def tapped_fixed_mul(table, idx, ops):
+            self.context = "fold"
+            try:
+                return fixed_mul(table, idx, ops)
+            finally:
+                self.context = "path"
+
+        def point(name, lead, fn, plain):
+            if name.endswith("padd"):
+                return lambda p, q: keep(name, lead, [p, q], lambda: fn(p, q), plain)
+            return lambda p, times=1: keep(name, lead, [p], lambda: fn(p, times),
+                                           lambda x: plain(x, times))
+
+        self.saved = [(TorchField, "_ew", ew), (TorchField, "butterfly", bfly),
+                      (TorchField, "normalize_raw", norm), (device_setup, "_fixed_mul", fixed_mul)]
+        TorchField._ew = tapped_ew
+        TorchField.butterfly = lambda F, u, v, tw: keep(
+            "fr.butterfly", 1, [u, v, tw], lambda: bfly(F, u, v, tw), F.butterfly_plain)
+        TorchField.normalize_raw = lambda F, cols: keep(
+            "fr.normalize_raw", 1, [cols], lambda: norm(F, cols), F.normalize_raw_plain)
+        device_setup._fixed_mul = tapped_fixed_mul
+        for ops, group, lead, plains in ((msm._G1Ops, "g1", 2, (pk.padd_plain, pk.pdbl_plain)),
+                                          (msm._G2Ops, "g2", 3, (pk.padd_g2_plain, pk.pdbl_g2_plain))):
+            for op, plain in zip(("padd", "pdbl"), plains):
+                self.saved.append((ops, op, ops.__dict__[op]))
+                setattr(ops, op, staticmethod(point(f"{group}.{op}", lead, getattr(ops, op), plain)))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, raw in reversed(self.saved):
+            setattr(owner, attr, raw)
+
+    def verify(self, what: str) -> None:
+        """Hold every kept launch against its plain version."""
+        for (name, ctx), (lanes, plain, xs, ys) in sorted(self.widest.items()):
+            want = plain(*xs)
+            err = max_abs_err(ys, want if isinstance(want, tuple) else (want,))
+            if err != 0:
+                raise AssertionError(f"{what}: {name}'s widest {ctx} launch ({lanes} lanes) disagrees "
+                                     f"with its plain version on {xs[0].shape[-1]} lanes (max |diff| {err})")
+            log(f"  {what} {name:22s} widest {ctx} launch {lanes:9d} lanes: {xs[0].shape[-1]} "
+                f"seeded lanes equal the plain version")
 
 
 def setup_targets():
@@ -754,7 +866,9 @@ def report_msms(tap, labels, backend, dev) -> None:
 
 def phase_round(dev, artifacts, backend):
     """Phase 5: one REFERENCE_CONFIG round on the port, its cold setups on
-    the card; returns the launch counts of the setups and of the round."""
+    the card, the widest launch of every kernel (the setups' folds
+    included) held against its plain version; returns the launch counts of
+    the setups and of the round."""
     import torch
 
     from zkfl_tpu_torch.commit.vector_hash import from_field
@@ -766,8 +880,9 @@ def phase_round(dev, artifacts, backend):
     from zkfl_tpu_torch.groth16.engine import TorchEngine
 
     cfg = REFERENCE_CONFIG
+    chk = LaunchCheck(SEED + 5)
     backend.LAUNCHES.clear()
-    with SetupTap(backend) as tap, WallTap(setup_targets()) as walls:
+    with chk, SetupTap(backend) as tap, WallTap(setup_targets()) as walls:
         t0 = time.time()
         prover = RoundProver(cfg, TorchEngine(dev), cache_dir=artifacts)
         setup_s = time.time() - t0
@@ -778,19 +893,20 @@ def phase_round(dev, artifacts, backend):
     walls.report("setups")
     if cold:
         log(f"  {tap.report(setup_s)}")
-        if not setup_launches.get("g1.padd") or not setup_launches.get("g2.padd"):
-            raise AssertionError(f"the cold setups launched no g1.padd or g2.padd: {setup_launches}")
+        if not all((op, "fold") in chk.widest for op in ("g1.padd", "g2.padd")):
+            raise AssertionError(f"the cold setups' folds launched no g1.padd or g2.padd: {setup_launches}")
     for cs in (prover.balance_cs, prover.training_cs, prover.secagg_cs):
         log(f"  {cs.name}: {cs.n_wires} wires, {len(cs.constraints)} constraints")
 
     backend.LAUNCHES.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    with MSMTap(backend) as tap, WallTap(prove_targets() + [(fl_prover, "groth16_verify")]) as walls:
+    with chk, MSMTap(backend) as tap, WallTap(prove_targets() + [(fl_prover, "groth16_verify")]) as walls:
         server, timings = run_round(cfg, prover=prover, verbose=False)
     torch.cuda.synchronize()
     launches = dict(backend.LAUNCHES)
     walls.report("round")
+    chk.verify("round")
 
     # The proofs run circuit by circuit, one batched prove each: a G1 then
     # a G2 MSM per circuit.
@@ -1015,151 +1131,88 @@ def structure_targets():
             (compiled.CompiledCircuit, "from_structure"), (compiled.CompiledCircuit, "save")]
 
 
-def prod_prepare(ready, results):
-    """Phase 7's cold work, in a process spawned before phase 2: the two
-    production structures built in Python and their COO forms cached (host
-    only, beside phases 2-5), then, once phase 6 has ended (``ready``),
-    their setups on the card into the zkey cache: fl/prod.py's cold path
-    (_structure, _setup), which run_prod_integration then finds warm.  Puts
-    ("ok", timings, launches) or ("error", traceback) on ``results``."""
-    import traceback
-
-    try:
-        sys.path.insert(0, REPO)
-        from zkfl_tpu_torch import backend
-        from zkfl_tpu_torch.fl import prod
-
-        def say(msg):
-            log(f"  [7, spawned] {msg}")
-
-        with WallTap(structure_targets(), sync=False) as walls:
-            t0 = time.time()
-            circuits = [(params, *prod._structure(params, PROD_CACHE, say))
-                        for params in (prod.BALANCE_PARAMS, prod.V5_PARAMS)]
-            out = {"structures_s": time.time() - t0}
-        walls.report("[7, spawned] structures")
-        cold = [c for c in circuits if c[2] is not None]
-        say(f"structures ready in {out['structures_s']:.1f} s "
-            f"({len(cold)} of 2 built); waiting for phase 6 to end before the setups")
-        ready.wait()
-        dev = backend.device("cuda:0")
-        backend.LAUNCHES.clear()
-        with SetupTap(backend) as tap, WallTap(setup_targets() + [(prod, "setup_cached")]) as walls:
-            t0 = time.time()
-            for params, cc, full in cold:
-                prod._setup(cc, full, params, PROD_CACHE, None, dev, say)
-            out["setups_s"] = time.time() - t0
-        walls.report("[7, spawned] setups")
-        if cold:
-            say(tap.report(out["setups_s"]))
-        out["cold_setups"] = len(cold)
-        out["setup_card_s"] = sum(c[2] for c in tap.calls) / 1e3
-        results.put(("ok", out, dict(backend.LAUNCHES)))
-    except BaseException:
-        results.put(("error", traceback.format_exc(), None))
-        raise
+def check_prod(res, what: str) -> None:
+    """Both production proofs verify natively, bind one root_D, and their
+    circuits have the reference's constraint counts."""
+    if not (res["balance_verified"] and res["v5_verified"]):
+        raise AssertionError(f"{what}: a production proof does not verify: {res}")
+    if not res["binding_ok"]:
+        raise AssertionError(f"{what}: the balance and v5 proofs do not bind the same root_D")
+    if res["constraints"] != PROD_CONSTRAINTS:
+        raise AssertionError(f"{what}: constraints {res['constraints']}, expected {PROD_CONSTRAINTS}")
 
 
-def start_prod_prepare():
-    """Spawn prod_prepare; returns (process, ready event, results queue)."""
-    import multiprocessing
-
-    ctx = multiprocessing.get_context("spawn")
-    ready, results = ctx.Event(), ctx.Queue()
-    proc = ctx.Process(target=prod_prepare, args=(ready, results), name="prod-prepare")
-    proc.start()
-    return proc, ready, results
-
-
-def paused(proc):
-    """Context manager: ``proc`` stopped (SIGSTOP) while the block runs.
-    Beside the spawned structure build, phase 6's first K5 launch read 131
-    ms between its events where it reads 84 ms alone (an H100 80GB HBM3 at
-    700 W)."""
-    import contextlib
-    import signal
-
-    @contextlib.contextmanager
-    def stopped():
-        os.kill(proc.pid, signal.SIGSTOP)
-        try:
-            yield
-        finally:
-            os.kill(proc.pid, signal.SIGCONT)
-
-    return stopped()
-
-
-def finish_prod_prepare(proc, ready, results):
-    """Let prod_prepare run its setups, wait for its result and its exit;
-    returns (timings, launches)."""
-    import queue
-
-    ready.set()
-    while True:
-        try:
-            status, out, launches = results.get(timeout=5)
-            break
-        except queue.Empty:
-            if not proc.is_alive():
-                raise RuntimeError(f"prod_prepare exited with code {proc.exitcode} and no result")
-    proc.join()
-    if status != "ok":
-        raise RuntimeError(f"prod_prepare failed:\n{out}")
-    return out, launches
-
-
-def phase_prod(dev, backend, prep, prep_launches):
-    """Phase 7: fl/prod.py's production run on the card, its structures and
-    setups from prod_prepare (``prep``: its timings); returns the launch
-    counts of run_prod_integration."""
+def phase_prod(dev, backend):
+    """Phase 7: fl/prod.py's production run on the card, twice.  First
+    instrumented: from an empty PROD_CACHE it builds both structures in
+    Python and sets them up on the card (fl/prod.py's cold path); the taps
+    split the setups, proofs and MSMs (synchronising the card around every
+    tapped function) and hold the widest launch of every kernel, the
+    setups' folds included, against its plain version.  Then as a user
+    runs it, from those caches and untapped: its timings are the run's
+    end-to-end times, its launches the path's.  Returns (the first run's
+    setup launches, the second run's launches)."""
     import torch
 
     from zkfl_tpu_torch.fl import prod
+    from zkfl_tpu_torch.groth16 import device_prover
     from zkfl_tpu_torch.groth16.engine import TorchEngine
 
+    cold = not (os.path.isdir(PROD_CACHE) and os.listdir(PROD_CACHE))
     log(f"  N={prod.PROD_N}, DIM={prod.PROD_DIM}, DEPTH={prod.PROD_DEPTH}, batch {prod.PROD_BATCH}; "
-        f"artifacts {PROD_CACHE}; spawned beside phases 2-5: structures {prep['structures_s']:.3f} s, "
-        f"then {prep['cold_setups']} cold setups in {prep['setups_s']:.3f} s "
-        f"({prep['setup_card_s']:.3f} s of it in the fixed-base chunks on the card); "
-        f"their launches {prep_launches}")
-    if prep["cold_setups"] and not all(prep_launches.get(k) for k in ("g1.padd", "g2.padd")):
-        raise AssertionError(f"the production setups launched no g1.padd or g2.padd: {prep_launches}")
-    backend.LAUNCHES.clear()
+        f"artifacts {PROD_CACHE} ({'empty: cold' if cold else 'present: warm'})")
+    log("  [7a] instrumented run (the taps synchronise the card around each tapped function)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    backend.LAUNCHES.clear()
     targets = structure_targets() + [(prod, "setup_cached"), (prod, "generate_dataset"),
                                      (prod, "generate_witness"), (prod, "groth16_verify")]
-    with SetupTap(backend) as stap, MSMTap(backend) as mtap, \
+    with LaunchCheck(SEED + 7) as chk, SetupTap(backend) as stap, MSMTap(backend) as mtap, \
             WallTap(targets + setup_targets() + prove_targets()) as walls:
         res = prod.run_prod_integration(cache_dir=PROD_CACHE, engine=TorchEngine(dev))
     torch.cuda.synchronize()
-    launches = dict(backend.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated(dev)
-
-    timings = res["timings"]
-    for name, secs in timings.items():
-        log(f"  {name:24s} {secs:9.3f} s")
-    walls.report("prod")
+    log(f"  instrumented launches {dict(backend.LAUNCHES)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    unchecked = [name for name in PROD_PATH if (name, "path") not in chk.widest]
+    if unchecked:
+        raise AssertionError(f"the production run never launched {unchecked}")
+    chk.verify("prod")
+    check_prod(res, "instrumented run")
+    for name, secs in res["timings"].items():
+        log(f"  instrumented {name:24s} {secs:9.3f} s")
+    walls.report("instrumented prod")
+    setup_launches = collections.Counter()
+    for call in stap.calls:
+        setup_launches.update(call[4])
     if stap.calls:
-        log(f"  {stap.report(timings['setups_s'])}")
-    log(f"  peak device memory {peak / 2**30:.2f} GiB")
+        log(f"  {stap.report(res['timings']['setups_s'])}")
+        if not all((op, "fold") in chk.widest for op in ("g1.padd", "g2.padd")):
+            raise AssertionError(f"the production setups' folds launched no g1.padd or g2.padd: "
+                                 f"{dict(setup_launches)}")
     labels = ("balance", "v5", "balance", "v5")  # first proves, then steady ones
     if [c[0] for c in mtap.calls] != ["g1", "g2"] * len(labels):
         raise AssertionError(f"MSM calls {[c[:3] for c in mtap.calls]}, expected G1, G2 per proof")
     report_msms(mtap, labels, backend, dev)
+
+    log("  [7b] the same run from the caches, untapped")
+    device_prover._prover_cache.clear()      # the first run's keys and COO streams
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    backend.LAUNCHES.clear()
+    res = prod.run_prod_integration(cache_dir=PROD_CACHE, engine=TorchEngine(dev))
+    torch.cuda.synchronize()
+    launches = dict(backend.LAUNCHES)
+    check_prod(res, "untapped run")
+    for name, secs in res["timings"].items():
+        log(f"  {name:24s} {secs:9.3f} s")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     log(f"  launches {launches}")
     log(f"  result {json.dumps({k: v for k, v in res.items() if k != 'timings'})}")
-    if not (res["balance_verified"] and res["v5_verified"]):
-        raise AssertionError(f"a production proof does not verify: {res}")
-    if not res["binding_ok"]:
-        raise AssertionError("the balance and v5 proofs do not bind the same root_D")
-    if res["constraints"] != PROD_CONSTRAINTS:
-        raise AssertionError(f"constraints {res['constraints']}, expected {PROD_CONSTRAINTS}")
     missing = [name for name in PROD_PATH if not launches.get(name)]
     if missing:
         raise AssertionError(f"the production run never launched {missing}")
-    return launches
+    return dict(setup_launches), launches
 
 
 # kernel op -> (source, the TPU kernel it replaces)
@@ -1238,66 +1291,53 @@ def main() -> int:
     log(f"  {json.dumps(info)}; max SM clock {sm_mhz:.0f} MHz: derived integer peak "
         f"{SMS * INT32_LANES * sm_mhz * 1e6 / 1e12:.2f} T multiply-adds/s")
 
-    # Phase 7's structure build is host Python for minutes: it runs in a
-    # spawned process beside phases 2-5 (stopped during phase 6, whose K5
-    # launches are timed without a card-side sleep in front), and its
-    # setups wait for phase 6 to end.
-    prep = start_prod_prepare()
-    try:
-        log("[2] build")
-        t0 = time.time()
-        lib_path = backend.build()
-        backend.lib()
-        log(f"  {lib_path} in {time.time() - t0:.1f} s")
-        nvcc_s = {}
-        build_log = (lib_path.parent / "build.log").read_text()
-        for line in build_log.splitlines():
-            if line.startswith("# nvcc "):
-                what, secs = line[len("# nvcc "):].split(": ")
-                nvcc_s[what] = float(secs.split()[0])
-        for entry, regs, spills in kernel_stats.ptxas_report(build_log):
-            log(f"  ptxas {entry}: {regs} registers ({kernel_stats.blocks_per_sm(regs)} blocks of 128 "
-                f"threads fit an SM); {spills}")
-        for line in kernel_stats.product_sass_lines(lib_path):
-            log(f"  sass {line}")
-        log(f"  nvcc wall time per process: {nvcc_s}; the sources' compiles add up to "
-            f"{sum(v for k, v in nvcc_s.items() if k != 'link'):.1f} s")
+    log("[2] build")
+    t0 = time.time()
+    lib_path = backend.build()
+    backend.lib()
+    log(f"  {lib_path} in {time.time() - t0:.1f} s")
+    nvcc_s = {}
+    build_log = (lib_path.parent / "build.log").read_text()
+    for line in build_log.splitlines():
+        if line.startswith("# nvcc "):
+            what, secs = line[len("# nvcc "):].split(": ")
+            nvcc_s[what] = float(secs.split()[0])
+    for entry, regs, spills in kernel_stats.ptxas_report(build_log):
+        log(f"  ptxas {entry}: {regs} registers ({kernel_stats.blocks_per_sm(regs)} blocks of 128 "
+            f"threads fit an SM); {spills}")
+    for line in kernel_stats.product_sass_lines(lib_path):
+        log(f"  sass {line}")
+    log(f"  nvcc wall time per process: {nvcc_s}; the sources' compiles add up to "
+        f"{sum(v for k, v in nvcc_s.items() if k != 'link'):.1f} s")
 
-        log("[3] kernels vs plain versions")
-        t0 = time.time()
-        rows = phase_kernels(dev, backend, sm_mhz)
-        log(f"  phase 3 in {time.time() - t0:.1f} s")
+    log("[3] kernels vs plain versions")
+    t0 = time.time()
+    rows = phase_kernels(dev, backend, sm_mhz)
+    log(f"  phase 3 in {time.time() - t0:.1f} s")
 
-        log("[4] MICRO_CONFIG balance setup and proof parity")
-        t0 = time.time()
-        phase_micro_parity(dev, artifacts, backend)
-        log(f"  phase 4 in {time.time() - t0:.1f} s")
+    log("[4] MICRO_CONFIG balance setup and proof parity")
+    t0 = time.time()
+    phase_micro_parity(dev, artifacts, backend)
+    log(f"  phase 4 in {time.time() - t0:.1f} s")
 
-        log("[5] REFERENCE_CONFIG round")
-        t0 = time.time()
-        setup_launches, round_launches = phase_round(dev, artifacts, backend)
-        log(f"  phase 5 in {time.time() - t0:.1f} s")
-        for name in sorted(round_launches):
-            log(f"  launches {name:24s} {round_launches[name]}")
+    log("[5] REFERENCE_CONFIG round")
+    t0 = time.time()
+    setup_launches, round_launches = phase_round(dev, artifacts, backend)
+    log(f"  phase 5 in {time.time() - t0:.1f} s")
+    for name in sorted(round_launches):
+        log(f"  launches {name:24s} {round_launches[name]}")
 
-        log("[6] dataset commitment on the card")
-        t0 = time.time()
-        with paused(prep[0]):
-            commit_launches, rows["fr.poseidon"] = phase_commitment(dev, backend, sm_mhz)
-        log(f"  phase 6 in {time.time() - t0:.1f} s")
+    log("[6] dataset commitment on the card")
+    t0 = time.time()
+    commit_launches, rows["fr.poseidon"] = phase_commitment(dev, backend, sm_mhz)
+    log(f"  phase 6 in {time.time() - t0:.1f} s")
 
-        log("[7] production run: balance N=128 (2^19 domain) + sgd_step_v5")
-        t0 = time.time()
-        prep_out, prep_launches = finish_prod_prepare(*prep)
-        log(f"  waited {time.time() - t0:.1f} s for the spawned structures and setups")
-        prod_launches = phase_prod(dev, backend, prep_out, prep_launches)
-        log(f"  phase 7 in {time.time() - t0:.1f} s")
-    finally:
-        if prep[0].is_alive():
-            prep[0].terminate()
-            prep[0].join()
+    log("[7] production run: balance N=128 (2^19 domain) + sgd_step_v5")
+    t0 = time.time()
+    prod_setup_launches, prod_launches = phase_prod(dev, backend)
+    log(f"  phase 7 in {time.time() - t0:.1f} s")
 
-    setups = collections.Counter(setup_launches) + collections.Counter(prep_launches)
+    setups = collections.Counter(setup_launches) + collections.Counter(prod_setup_launches)
     by_path = {"setup": setups, "round": round_launches, "commit": commit_launches,
                "prod": prod_launches}
     paths = {name: {k: v.get(name, 0) for k, v in by_path.items()} for name in KERNELS}

@@ -16,7 +16,6 @@ from __future__ import annotations
 from typing import Optional
 
 from ..groth16.device_prover import PipelineProfile
-from ..groth16.engine import TorchEngine
 from ..groth16.prover import groth16_prove, groth16_prove_many
 from ..groth16.setup import setup_cached_many
 from ..groth16.verifier import groth16_verify
@@ -38,7 +37,7 @@ class RoundProver:
         self.secagg_cs = build_structure(config.secagg_params)
         structures = [self.balance_cs, self.training_cs, self.secagg_cs]
         domain = device = None  # HostEngine: natural domains, the pure-Python ladder
-        if isinstance(engine, TorchEngine):
+        if self.can_batch:
             if engine.profile is None:
                 engine.profile = PipelineProfile.cover(structures)
             domain, device = engine.profile.domain, engine.device
@@ -59,6 +58,8 @@ class RoundProver:
     # -- batched proving (client-batch data parallelism) ------------------
     @property
     def can_batch(self) -> bool:
+        """True for an engine with the fused device pipeline (TorchEngine):
+        it batches clients, pads to one profile and sets up on its device."""
         return hasattr(self.engine, "fused_msms")
 
     def prove_balance_many(self, witnesses):
