@@ -49,10 +49,23 @@ nothing of zkfl_tpu.  Phases (any failure raises and exits non-zero):
      setups' folds apart) held against its plain version on 2^12 seeded
      lanes.  Then untapped, from those caches, as a user runs it: every
      timing of its result and peak card memory.  Both runs' proofs verify
-     natively and bind the same root_D.
+     natively and bind the same root_D;
+  8. formats and sharding, from what phases 5 and 7 left in memory and on
+     disk: write_ptau on the card at power 14, read back and held against
+     the host curve and the native pairing; REFERENCE_CONFIG's balance key
+     through write_zkey / read_zkey, proved with the reloaded key; the
+     committed snarkjs-layout zkey (tests/data, odd H basis) proved on the
+     card; phase 7's proofs and vkeys through snarkjs JSON; the client batch
+     over a 3-shard "clients" mesh against the unsharded batch, then a round
+     with that mesh; msm_g1_sharded over 4 shards against pippenger_g1 and
+     msm_g1_host (2^16 points of the production balance key); the TP
+     prover over 4 shards on the production balance proof (2^19 domain)
+     against the unsharded pipeline, bit for bit, and its proof verified.
+     The shards are virtual: 3 or 4 shards on the one card, run one after
+     another.  LaunchCheck holds each kernel's widest launch.
 fr.poseidon's row in the kernel report is phase 6's launches; each row's
 "paths" splits its launches by phase (setup: the cold setups of phases 5
-and 7; prod: phase 7's untapped run).
+and 7; prod: phase 7's untapped run; parallel: phase 8).
 The last two lines are the kernel report and the device line, both JSON.
 """
 
@@ -577,6 +590,27 @@ class WallTap:
             log(f"  {what} split {label:36s} {self.calls[label]:5d} calls {ms:11.1f} ms")
 
 
+class Record:
+    """While active, wraps the function ``owner.attr`` and keeps the
+    positional arguments of every call (no synchronisation, no timing)."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr, self.calls = owner, attr, []
+
+    def __enter__(self):
+        raw = self.raw = getattr(self.owner, self.attr)
+
+        def recorded(*args, **kwargs):
+            self.calls.append(args)
+            return raw(*args, **kwargs)
+
+        setattr(self.owner, self.attr, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.raw)
+
+
 CHECK_LANES = 1 << 12    # lanes of a tapped launch held against the plain version
 
 
@@ -868,11 +902,9 @@ def phase_round(dev, artifacts, backend):
     """Phase 5: one REFERENCE_CONFIG round on the port, its cold setups on
     the card, the widest launch of every kernel (the setups' folds
     included) held against its plain version; returns the launch counts of
-    the setups and of the round."""
+    the setups and of the round, and the round's RoundProver."""
     import torch
 
-    from zkfl_tpu_torch.commit.vector_hash import from_field
-    from zkfl_tpu_torch.field.bn254 import FR
     from zkfl_tpu_torch.fl import prover as fl_prover
     from zkfl_tpu_torch.fl.config import REFERENCE_CONFIG
     from zkfl_tpu_torch.fl.prover import RoundProver
@@ -923,6 +955,15 @@ def phase_round(dev, artifacts, backend):
                  "secagg_proofs", "aggregate", "total"):
         log(f"  phase {name:16s} {timings[name]:9.3f} s")
     log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    check_round(server, cfg)
+    return setup_launches, launches, prover
+
+
+def check_round(server, cfg) -> None:
+    """Every proof of a round verified and the masks cancel in its aggregate."""
+    from zkfl_tpu_torch.commit.vector_hash import from_field
+    from zkfl_tpu_torch.field.bn254 import FR
+
     summary = server.get_summary()
     log(f"  summary {summary}")
     if not summary["all_passed"]:
@@ -940,7 +981,6 @@ def phase_round(dev, artifacts, backend):
             m == [g % FR for g in server.training_updates[c].gradient] for c, m in zip(ids, masked)):
         raise AssertionError("masks did not cancel in the aggregate")
     log(f"  {proofs} proofs verified; masks cancel: aggregate {server.aggregated_gradient}")
-    return setup_launches, launches
 
 
 def dataset(gen, n, dev):
@@ -1151,7 +1191,8 @@ def phase_prod(dev, backend):
     setups' folds included, against its plain version.  Then as a user
     runs it, from those caches and untapped: its timings are the run's
     end-to-end times, its launches the path's.  Returns (the first run's
-    setup launches, the second run's launches)."""
+    setup launches, the second run's launches, the (vk, proof) pairs the
+    first run verified)."""
     import torch
 
     from zkfl_tpu_torch.fl import prod
@@ -1168,7 +1209,8 @@ def phase_prod(dev, backend):
     targets = structure_targets() + [(prod, "setup_cached"), (prod, "generate_dataset"),
                                      (prod, "generate_witness"), (prod, "groth16_verify")]
     with LaunchCheck(SEED + 7) as chk, SetupTap(backend) as stap, MSMTap(backend) as mtap, \
-            WallTap(targets + setup_targets() + prove_targets()) as walls:
+            WallTap(targets + setup_targets() + prove_targets()) as walls, \
+            Record(prod, "groth16_verify") as verified:
         res = prod.run_prod_integration(cache_dir=PROD_CACHE, engine=TorchEngine(dev))
     torch.cuda.synchronize()
     log(f"  instrumented launches {dict(backend.LAUNCHES)}; peak device memory "
@@ -1212,7 +1254,267 @@ def phase_prod(dev, backend):
     missing = [name for name in PROD_PATH if not launches.get(name)]
     if missing:
         raise AssertionError(f"the production run never launched {missing}")
-    return dict(setup_launches), launches
+    return dict(setup_launches), launches, verified.calls
+
+
+FORMATS_POWER = 14       # the ptau power of REFERENCE_CONFIG's 16,384 domain
+TP_MSM_POINTS = 1 << 16  # phase 8's TP-MSM against the unsharded one
+SNARKJS_FIXTURE = os.path.join(REPO, "tests", "data", "snarkjs_layout_toy.zkey")
+
+
+def toy_circuit():
+    """The circuit of the committed snarkjs-layout fixture (out = x^2 y + x
+    + 7 at x = 3, y = 5: its seeded keys are tests/data's zkey)."""
+    from zkfl_tpu_torch.r1cs.builder import ConstraintSystem
+
+    cs = ConstraintSystem(name="bin_toy")
+    out = cs.public_input("out", 3 * 3 * 5 + 3 + 7)
+    x = cs.private_input("x", 3)
+    y = cs.private_input("y", 5)
+    cs.enforce_equal(cs.mul(cs.mul(x, x), y) + x + 7, out)
+    return cs
+
+
+def check_ptau(dev, work, rng):
+    """Phase 8 (a): write_ptau on the card at FORMATS_POWER, read back; 16
+    seeded indices of each section against the host curve, 4 of them by
+    the native pairing."""
+    from zkfl_tpu_torch import native
+    from zkfl_tpu_torch.field.bn254 import FR
+    from zkfl_tpu_torch.field.curve import G1_GEN, g1_mul, g1_neg, g2_generator, g2_mul_jac
+    from zkfl_tpu_torch.groth16.binformat import read_ptau, write_ptau
+
+    tau, alpha, beta = (rng.randrange(2, FR) for _ in range(3))
+    path = os.path.join(work, "dev.ptau")
+    write_ptau(path, FORMATS_POWER, tau, alpha, beta, device=dev)
+    p = read_ptau(path)
+    n = 1 << FORMATS_POWER
+    sizes = [len(p[k]) for k in ("tau_g1", "tau_g2", "alpha_tau_g1", "beta_tau_g1")]
+    if (p["power"], sizes) != (FORMATS_POWER, [2 * n - 1, n, n, n]):
+        raise AssertionError(f"ptau power {p['power']}, section sizes {sizes}")
+    g2 = g2_generator()
+    if g2_key([p["beta_g2"]]) != g2_key([g2_mul_jac(g2, beta)]):
+        raise AssertionError("ptau beta_g2 != beta * G2")
+    for i in rng.sample(range(2 * n - 1), 16):
+        if p["tau_g1"][i] != g1_mul(G1_GEN, pow(tau, i, FR)):
+            raise AssertionError(f"ptau tau_g1[{i}] != tau^{i} * G1")
+    idx = rng.sample(range(n), 16)
+    for i in idx:
+        t = pow(tau, i, FR)
+        if g2_key([p["tau_g2"][i]]) != g2_key([g2_mul_jac(g2, t)]):
+            raise AssertionError(f"ptau tau_g2[{i}] != tau^{i} * G2")
+        if (p["alpha_tau_g1"][i], p["beta_tau_g1"][i]) != \
+                (g1_mul(G1_GEN, alpha * t % FR), g1_mul(G1_GEN, beta * t % FR)):
+            raise AssertionError(f"ptau alpha/beta tau_g1[{i}] disagree with the host curve")
+    for i in idx[:4]:
+        ok = native.pairing_check_native([(g1_neg(p["tau_g1"][i]), g2), (G1_GEN, p["tau_g2"][i])])
+        if ok is not True:
+            raise AssertionError(f"e(tau_g1[{i}], G2) != e(G1, tau_g2[{i}]) (native check: {ok})")
+    return f"power {FORMATS_POWER}, {os.path.getsize(path)} bytes; 16 indices of each section " \
+           f"equal the host curve, 4 pairings hold"
+
+
+def check_zkey(prover, work, witness):
+    """Phase 8 (b): REFERENCE_CONFIG's balance key through write_zkey and
+    read_zkey; a fused proof on the card with the reloaded key."""
+    from zkfl_tpu_torch.groth16.binformat import read_zkey, write_zkey
+    from zkfl_tpu_torch.groth16.prover import groth16_prove
+    from zkfl_tpu_torch.groth16.verifier import groth16_verify
+
+    pk, vk, cs = prover.balance_pk, prover.balance_vk, prover.balance_cs
+    path = os.path.join(work, "balance.zkey")
+    write_zkey(path, pk, vk, cs)
+    pk2, vk2, meta = read_zkey(path)
+    if key_ints((pk2, vk2)) != key_ints((pk, vk)) or meta["n_vars"] != cs.n_wires:
+        raise AssertionError("the balance key read back from its zkey differs")
+    if not groth16_verify(vk2, groth16_prove(pk2, cs, witness, engine=prover.engine)):
+        raise AssertionError("the fused proof with the reloaded balance key does not verify")
+    return f"{os.path.getsize(path)} bytes, {len(meta['coeffs'])} coefficients; equal; its proof verifies"
+
+
+def check_fixture(dev):
+    """Phase 8 (c): the committed snarkjs-layout zkey (odd H basis) proved
+    on the card through groth16_prove's stage-by-stage branch."""
+    from zkfl_tpu_torch.groth16.binformat import read_zkey, structure_from_zkey
+    from zkfl_tpu_torch.groth16.engine import TorchEngine
+    from zkfl_tpu_torch.groth16.prover import groth16_prove
+    from zkfl_tpu_torch.groth16.verifier import groth16_verify
+
+    pk, vk, meta = read_zkey(SNARKJS_FIXTURE)
+    if pk.h_basis != "odd_evals":
+        raise AssertionError(f"the fixture reads as h_basis {pk.h_basis!r}")
+    proof = groth16_prove(pk, structure_from_zkey(pk, meta), toy_circuit().values,
+                          engine=TorchEngine(dev))
+    if not groth16_verify(vk, proof):
+        raise AssertionError("the snarkjs fixture's proof on the card does not verify")
+    return f"domain {pk.domain}, odd basis; its proof on the card verifies"
+
+
+def check_json(verified):
+    """Phase 8 (d): phase 7's proofs and vkeys to snarkjs JSON and back."""
+    from zkfl_tpu_torch.groth16 import serialize as ser
+    from zkfl_tpu_torch.groth16.verifier import groth16_verify
+
+    if len(verified) != 2:
+        raise AssertionError(f"phase 7 verified {len(verified)} proofs, expected 2")
+    for vk, proof in verified:
+        text = json.dumps([ser.proof_to_json(proof), ser.public_to_json(proof.public_signals),
+                           ser.vkey_to_json(vk)])
+        pj, pub, vj = json.loads(text)
+        back = ser.proof_from_json(pj, ser.public_from_json(pub))
+        vk2 = ser.vkey_from_json(vj)
+        if key_ints((back, vk2)) != key_ints((proof, vk)) or not groth16_verify(vk2, back):
+            raise AssertionError("a production proof or vkey changed through JSON")
+    return "both production proofs and vkeys equal after JSON and back; both verify"
+
+
+def check_dp(dev, prover, witnesses):
+    """Phase 8 (e): the client batch over a 3-shard "clients" mesh equals
+    the unsharded batch; then a whole round with that mesh."""
+    from zkfl_tpu_torch.fl.config import REFERENCE_CONFIG
+    from zkfl_tpu_torch.fl.simulation import run_round
+    from zkfl_tpu_torch.groth16.device_prover import device_prover
+    from zkfl_tpu_torch.parallel import Mesh
+
+    eng = prover.engine
+    dp = device_prover(prover.balance_pk, prover.balance_cs, eng.device, eng.profile)
+    mesh = Mesh([dev] * len(witnesses), "clients")
+    want, plain_ms = once_ms(lambda: dp.msm_results_many(witnesses))
+    got, mesh_ms = once_ms(lambda: dp.msm_results_many(witnesses, mesh=mesh))
+    if got != want:
+        raise AssertionError("the client mesh's MSM results differ from the unsharded batch's")
+    server, timings = run_round(REFERENCE_CONFIG, prover=prover, verbose=False, mesh=mesh)
+    check_round(server, REFERENCE_CONFIG)
+    return f"{mesh}: the balance batch's MSMs equal (unsharded {plain_ms:.1f} ms, sharded " \
+           f"{mesh_ms:.1f} ms); run_round(mesh=) {timings['total']:.3f} s"
+
+
+def check_tp_msm(dev, points, rng):
+    """Phase 8 (f): msm_g1_sharded over 4 shards against pippenger_g1 on 64
+    points and against the unsharded msm_g1_host on TP_MSM_POINTS."""
+    from zkfl_tpu_torch.field.bn254 import FR
+    from zkfl_tpu_torch.field.curve import G1_GEN, g1_mul
+    from zkfl_tpu_torch.groth16.prover import pippenger_g1
+    from zkfl_tpu_torch.ops.msm import msm_g1_host
+    from zkfl_tpu_torch.parallel import Mesh, msm_g1_sharded
+
+    mesh = Mesh([dev] * 4, "points")
+    pts = [g1_mul(G1_GEN, rng.randrange(1, FR)) for _ in range(64)]
+    scs = [rng.randrange(FR) for _ in range(64)]
+    if msm_g1_sharded(pts, scs, mesh) != pippenger_g1(pts, scs):
+        raise AssertionError("the sharded MSM of 64 points != pippenger_g1")
+    scs = [rng.randrange(FR) for _ in range(len(points))]
+    want, plain_ms = once_ms(lambda: msm_g1_host(points, scs, dev))
+    got, tp_ms = once_ms(lambda: msm_g1_sharded(points, scs, mesh))
+    if got != want:
+        raise AssertionError(f"the sharded MSM of {len(points)} points != msm_g1_host")
+    return f"{mesh}: 64 points equal pippenger_g1; {len(points)} points of the production " \
+           f"balance key equal msm_g1_host (unsharded {plain_ms:.1f} ms, sharded {tp_ms:.1f} ms)"
+
+
+def check_tp_prover(dev, dp, witness, vk):
+    """Phase 8 (g): the production balance proof through the TP prover over
+    a 4-shard "points" mesh: its MSM results equal the unsharded pipeline's
+    bit for bit, its proof verifies; each timed twice (the first TP call
+    builds the 4-step tables)."""
+    from zkfl_tpu_torch.groth16.prover import _assemble_proof, default_blinding
+    from zkfl_tpu_torch.groth16.verifier import groth16_verify
+    from zkfl_tpu_torch.parallel import Mesh
+    from zkfl_tpu_torch.parallel.prover import _factor, msm_results_tp
+
+    mesh = Mesh([dev] * 4, "points")
+    r, s = default_blinding(witness)
+
+    def prove(msm_results):
+        msms = msm_results()
+        return msms, _assemble_proof(dp.pk, witness, msms, r, s)
+
+    times = []
+    for _ in range(2):
+        (want_msms, want), plain_ms = once_ms(lambda: prove(lambda: dp.msm_results(witness)))
+        (msms, proof), tp_ms = once_ms(lambda: prove(lambda: msm_results_tp(dp, [witness], mesh)[0]))
+        times.append((plain_ms, tp_ms))
+        if msms != want_msms:
+            raise AssertionError("the TP prover's MSM results differ from the unsharded pipeline's")
+    if (proof.pi_a, proof.pi_b, proof.pi_c) != (want.pi_a, want.pi_b, want.pi_c):
+        raise AssertionError("the TP proof differs from the unsharded proof")
+    if not groth16_verify(vk, proof):
+        raise AssertionError("the TP proof does not verify")
+    n1, n2 = _factor(dp.domain, 4)
+    return (f"{mesh}, domain {dp.domain} = {n1} x {n2}, n_max {dp.n_max}: MSM results equal the "
+            f"unsharded pipeline's, the proof verifies; prove ms (unsharded, TP) first "
+            f"{times[0][0]:.1f}, {times[0][1]:.1f}; second {times[1][0]:.1f}, {times[1][1]:.1f}"), times
+
+
+def phase_parallel(dev, backend, prover, verified):
+    """Phase 8: formats and sharding on the card, from what phases 5 and 7
+    left in memory and on disk (REFERENCE_CONFIG's RoundProver, phase 7's
+    verified proofs, the production caches).  LaunchCheck holds the widest
+    launch of every kernel against its plain version.  Returns (launch
+    counts, the TP prover's times)."""
+    import random
+
+    import torch
+
+    from zkfl_tpu_torch.fl import prod
+    from zkfl_tpu_torch.fl.client import Client, SharedLCG
+    from zkfl_tpu_torch.fl.config import REFERENCE_CONFIG
+    from zkfl_tpu_torch.groth16.device_prover import DeviceProver
+    from zkfl_tpu_torch.r1cs.circuits import generate_witness
+
+    rng = random.Random(SEED + 8)
+    work = os.path.join(REPO, "build", "phase8")
+    os.makedirs(work, exist_ok=True)
+    cfg = REFERENCE_CONFIG
+    clients = [Client(i, cfg, prover) for i in range(1, cfg.num_clients + 1)]
+    lcg = SharedLCG(cfg.seed)
+    for c in clients:
+        c.generate_private_dataset(lcg)
+        c.compute_dataset_commitment()
+    witnesses = [c.balance_witness() for c in clients]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    backend.LAUNCHES.clear()
+    tp = {}
+
+    def part(name, fn):
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        log(f"  [8{name}] {time.time() - t0:8.3f} s  {out}")
+
+    def prod_balance():
+        cc, _ = prod._structure(prod.BALANCE_PARAMS, PROD_CACHE, log)
+        pk, vk = prod._setup(cc, None, prod.BALANCE_PARAMS, PROD_CACHE, None, dev, log)
+        wit = generate_witness(prod.BALANCE_PARAMS, prod.balance_inputs(prod.generate_dataset()))
+        tp.update(dp=DeviceProver(pk, cc, dev), vk=vk, witness=wit.witness)
+        return f"production balance key, structure and witness from {PROD_CACHE}"
+
+    def tp_prover():
+        text, tp["times"] = check_tp_prover(dev, tp["dp"], tp["witness"], tp["vk"])
+        return text
+
+    with LaunchCheck(SEED + 8) as chk:
+        part("a write_ptau", lambda: check_ptau(dev, work, rng))
+        part("b zkey", lambda: check_zkey(prover, work, witnesses[0]))
+        part("c snarkjs", lambda: check_fixture(dev))
+        part("d json", lambda: check_json(verified))
+        part("e DP", lambda: check_dp(dev, prover, witnesses))
+        part(" load", prod_balance)
+        part("f TP-MSM", lambda: check_tp_msm(dev, tp["dp"].pk.a_query[:TP_MSM_POINTS], rng))
+        part("g TP prover", tp_prover)
+    torch.cuda.synchronize()
+    launches = dict(backend.LAUNCHES)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    log(f"  launches {launches}")
+    chk.verify("parallel")
+    # the production run's kernels: the DP, TP and odd-basis prove paths,
+    # the sharded MSMs, write_ptau's folds
+    missing = [name for name in PROD_PATH if not launches.get(name)]
+    if missing:
+        raise AssertionError(f"phase 8 never launched {missing}")
+    return launches, tp["times"]
 
 
 # kernel op -> (source, the TPU kernel it replaces)
@@ -1322,7 +1624,7 @@ def main() -> int:
 
     log("[5] REFERENCE_CONFIG round")
     t0 = time.time()
-    setup_launches, round_launches = phase_round(dev, artifacts, backend)
+    setup_launches, round_launches, round_prover = phase_round(dev, artifacts, backend)
     log(f"  phase 5 in {time.time() - t0:.1f} s")
     for name in sorted(round_launches):
         log(f"  launches {name:24s} {round_launches[name]}")
@@ -1334,12 +1636,17 @@ def main() -> int:
 
     log("[7] production run: balance N=128 (2^19 domain) + sgd_step_v5")
     t0 = time.time()
-    prod_setup_launches, prod_launches = phase_prod(dev, backend)
+    prod_setup_launches, prod_launches, prod_verified = phase_prod(dev, backend)
     log(f"  phase 7 in {time.time() - t0:.1f} s")
+
+    log("[8] formats and sharding")
+    t0 = time.time()
+    parallel_launches, _ = phase_parallel(dev, backend, round_prover, prod_verified)
+    log(f"  phase 8 in {time.time() - t0:.1f} s")
 
     setups = collections.Counter(setup_launches) + collections.Counter(prod_setup_launches)
     by_path = {"setup": setups, "round": round_launches, "commit": commit_launches,
-               "prod": prod_launches}
+               "prod": prod_launches, "parallel": parallel_launches}
     paths = {name: {k: v.get(name, 0) for k, v in by_path.items()} for name in KERNELS}
     launches = {name: sum(paths[name].values()) for name in KERNELS}
     for name in CHECK_ONLY:

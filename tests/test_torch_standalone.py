@@ -61,7 +61,9 @@ def test_no_import_of_zkfl_tpu_or_jax(rel):
 
 def test_port_files_found():
     assert "zkfl_tpu_torch/ops/poseidon.py" in PORT_FILES
-    for rel in ("groth16/device_setup.py", "r1cs/compiled.py", "fl/prod.py"):
+    for rel in ("groth16/device_setup.py", "r1cs/compiled.py", "fl/prod.py",
+                "groth16/serialize.py", "groth16/binformat.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/msm.py", "parallel/ntt.py", "parallel/prover.py"):
         assert f"zkfl_tpu_torch/{rel}" in PORT_FILES
     assert len(PORT_FILES) > 40
 
@@ -133,3 +135,29 @@ def test_commitments_match_zkfl_tpu():
     assert not merkle.verify_merkle_path(leaves[3], sib, path, tree.root)
     assert vector_hash.gradient_commitment([5, FR - 3, 7], 2, 1) == \
         zk_vh.gradient_commitment([5, FR - 3, 7], 2, 1)
+
+
+def test_format_codecs_match_zkfl_tpu():
+    """binformat's point codecs and serialize's JSON are copies: the same
+    bytes and strings for the same points, parsed back alike."""
+    from zkfl_tpu.field.curve import g1_generator as zk_g1, g2_generator as zk_g2
+    from zkfl_tpu.field.curve import g1_mul as zk_g1_mul, g2_mul as zk_g2_mul
+    from zkfl_tpu.groth16 import binformat as zk_bf, serialize as zk_ser
+    from zkfl_tpu_torch.field.curve import g1_generator, g1_mul, g2_generator, g2_mul
+    from zkfl_tpu_torch.groth16 import binformat as bf, serialize as ser
+
+    g1s = [None, g1_generator(), g1_mul(g1_generator(), 12345)]
+    g2s = [None, g2_generator(), g2_mul(g2_generator(), 6789)]
+    zk_g1s = [None, zk_g1(), zk_g1_mul(zk_g1(), 12345)]
+    zk_g2s = [None, zk_g2(), zk_g2_mul(zk_g2(), 6789)]
+    for p, q in zip(g1s, zk_g1s):
+        assert bf.g1_bytes(p) == zk_bf.g1_bytes(q)
+        assert bf.g1_parse(bf.g1_bytes(p)) == p
+        assert ser._g1_json(p) == zk_ser._g1_json(q)
+        assert ser._g1_parse(ser._g1_json(p)) == p
+    for p, q in zip(g2s, zk_g2s):
+        assert bf.g2_bytes(p) == zk_bf.g2_bytes(q)
+        assert key_ints(bf.g2_parse(bf.g2_bytes(p))) == key_ints(p)
+        assert ser._g2_json(p) == zk_ser._g2_json(q)
+        assert key_ints(ser._g2_parse(ser._g2_json(p))) == key_ints(p)
+    assert bf.read_binfile(bf.BinWriter("wtns", 2).tobytes(), "wtns") == {}

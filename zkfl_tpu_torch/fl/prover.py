@@ -6,7 +6,8 @@ full_system_simulation.mjs:698-739).  On a TorchEngine the three circuits
 pad to one ``PipelineProfile`` and their setups are built at its domain on
 the engine's device, so every proof of a round runs through one set of
 device shapes, and batched proving goes through ``groth16_prove_many``
-(client-batch data parallelism).  A HostEngine proves stage by stage in
+(client-batch data parallelism; with a ``mesh``, sharded over its
+"clients" axis).  A HostEngine proves stage by stage in
 pure Python, one client at a time, on setups from the pure-Python ladder.
 Verification is the native pairing check.
 """
@@ -62,14 +63,17 @@ class RoundProver:
         it batches clients, pads to one profile and sets up on its device."""
         return hasattr(self.engine, "fused_msms")
 
-    def prove_balance_many(self, witnesses):
-        return groth16_prove_many(self.balance_pk, self.balance_cs, witnesses, self.engine)
+    def prove_balance_many(self, witnesses, mesh=None):
+        return groth16_prove_many(self.balance_pk, self.balance_cs, witnesses, self.engine,
+                                  mesh=mesh)
 
-    def prove_training_many(self, witnesses):
-        return groth16_prove_many(self.training_pk, self.training_cs, witnesses, self.engine)
+    def prove_training_many(self, witnesses, mesh=None):
+        return groth16_prove_many(self.training_pk, self.training_cs, witnesses, self.engine,
+                                  mesh=mesh)
 
-    def prove_secagg_many(self, witnesses):
-        return groth16_prove_many(self.secagg_pk, self.secagg_cs, witnesses, self.engine)
+    def prove_secagg_many(self, witnesses, mesh=None):
+        return groth16_prove_many(self.secagg_pk, self.secagg_cs, witnesses, self.engine,
+                                  mesh=mesh)
 
     # -- verification (server side) --------------------------------------
     def verify_balance(self, proof) -> bool:

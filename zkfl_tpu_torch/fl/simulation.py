@@ -43,6 +43,7 @@ def run_round(
     prover: Optional[RoundProver] = None,
     verbose: bool = True,
     batch_clients: Optional[bool] = None,
+    mesh=None,
 ):
     """Execute one complete verifiable FL round; returns (server, timings).
 
@@ -52,7 +53,8 @@ def run_round(
     engine has the fused pipeline) each proof phase generates every
     client's witness and proves them in ONE batched device pipeline instead
     of the reference's client-at-a-time loop
-    (full_system_simulation.mjs:1298-1343).
+    (full_system_simulation.mjs:1298-1343); ``mesh`` (parallel/mesh.py)
+    additionally shards each client batch over its "clients" axis.
     """
     t_start = time.time()
     timings = {}
@@ -91,7 +93,7 @@ def run_round(
     # Phase 3: balance proofs.
     phase("balance_proofs")
     if batch_clients:
-        proofs = prover.prove_balance_many([c.balance_witness() for c in clients])
+        proofs = prover.prove_balance_many([c.balance_witness() for c in clients], mesh=mesh)
         packages = [c.package_balance(p) for c, p in zip(clients, proofs)]
     else:
         packages = [c.generate_balance_proof() for c in clients]
@@ -104,7 +106,7 @@ def run_round(
     phase("training_proofs")
     if batch_clients:
         proofs = prover.prove_training_many(
-            [c.training_witness(server.global_model) for c in clients]
+            [c.training_witness(server.global_model) for c in clients], mesh=mesh
         )
         packages = [c.package_training(p) for c, p in zip(clients, proofs)]
     else:
@@ -118,7 +120,8 @@ def run_round(
     phase("secagg_proofs")
     shared_keys = simulate_key_exchange(config.num_clients)
     if batch_clients:
-        proofs = prover.prove_secagg_many([c.secagg_witness(shared_keys) for c in clients])
+        proofs = prover.prove_secagg_many([c.secagg_witness(shared_keys) for c in clients],
+                                          mesh=mesh)
         packages = [c.package_secagg(p) for c, p in zip(clients, proofs)]
     else:
         packages = [c.generate_secagg_proof(shared_keys) for c in clients]

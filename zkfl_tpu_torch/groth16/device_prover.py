@@ -22,6 +22,7 @@ from ..ops import msm
 from ..ops import point_kernels as pk_ops
 from ..ops.limb_kernels import FRK
 from ..ops.qap import DeviceMatrices, compute_h, matrix_evals
+from ..parallel.mesh import Mesh
 from ..r1cs.builder import ConstraintSystem
 from ..r1cs.compiled import n_constraints
 from .setup import ProvingKey
@@ -69,6 +70,23 @@ def _prove_msms_impl(cfg, n_pub: int, g1_pts, b2_pts, rows, cols, coeffs, w_std)
     evals = matrix_evals(rows, cols, coeffs, w_mont, domain)
     h_std = compute_h(evals)  # [8, B, domain] standard form
 
+    scalars, fam, g2_scalars = msm_scalars(n_pub, w_lm, h_std, n_max)
+    g1_out = msm._msm_impl(g1_pts, scalars, msm._G1Ops, wc_g1, wbits, row_map=fam)
+    g2_out = msm._msm_impl(
+        b2_pts, g2_scalars, msm._G2Ops, wc_g2, wbits,
+        row_map=torch.zeros(B, dtype=torch.int64, device=dev),
+    )
+    return g1_out.reshape(3, N_LIMBS, B, 4), g2_out
+
+
+def msm_scalars(n_pub: int, w_lm: torch.Tensor, h_std: torch.Tensor, n_max: int):
+    """The five MSMs' scalars from the witness limbs w_lm [8, B, m] and
+    h(X)'s coefficients h_std [8, B, domain], both standard form:
+    ([B*4, 8, n_max] rows ordered (client, family) A, B1, C, H; the row ->
+    point family map [B*4]; the B2 rows [B, 8, n_max])."""
+    _, B, m = w_lm.shape
+    dev = w_lm.device
+
     def pad(x):
         return torch.nn.functional.pad(x, (0, n_max - x.shape[-1]))  # [8, B, n_max]
 
@@ -77,19 +95,11 @@ def _prove_msms_impl(cfg, n_pub: int, g1_pts, b2_pts, rows, cols, coeffs, w_std)
     # identity points in front); public positions mask to zero.
     wire = torch.arange(m, device=dev)
     priv = pad(torch.where(wire > n_pub, w_lm, 0))
-    h_sc = pad(h_std[:, :, : domain - 1])
-    # scalar rows ordered (client, family): [B*4, 8, n_max]
+    h_sc = pad(h_std[:, :, : h_std.shape[-1] - 1])
     scalars = torch.stack([wit, wit, priv, h_sc], dim=2)  # [8, B, 4, n]
     scalars = scalars.permute(1, 2, 0, 3).reshape(B * 4, N_LIMBS, n_max)
     fam = torch.arange(4, device=dev).repeat(B)  # row -> point family
-
-    g1_out = msm._msm_impl(g1_pts, scalars, msm._G1Ops, wc_g1, wbits, row_map=fam)
-    g2_scalars = wit.permute(1, 0, 2).contiguous()  # [B, 8, n_max]
-    g2_out = msm._msm_impl(
-        b2_pts, g2_scalars, msm._G2Ops, wc_g2, wbits,
-        row_map=torch.zeros(B, dtype=torch.int64, device=dev),
-    )
-    return g1_out.reshape(3, N_LIMBS, B, 4), g2_out
+    return scalars, fam, wit.permute(1, 0, 2).contiguous()
 
 
 class DeviceProver:
@@ -142,6 +152,18 @@ class DeviceProver:
         else:
             dm = DeviceMatrices(structure.constraints, self.domain, device, nnz_pad=nnz_pad)
         self.rows, self.cols, self.coeffs = dm.rows, dm.cols, dm.coeffs
+        self.cfg = self.cfg_for(1)
+        self._copies: Dict[str, tuple] = {}
+
+    def on(self, device: torch.device) -> tuple:
+        """(g1_pts, b2_pts, rows, cols, coeffs) on ``device``: the resident
+        tensors themselves where they are already there, else copies made
+        once and kept."""
+        key = str(device)
+        if key not in self._copies:
+            self._copies[key] = tuple(t.to(device) for t in (
+                self.g1_pts, self.b2_pts, self.rows, self.cols, self.coeffs))
+        return self._copies[key]
 
     def cfg_for(self, batch: int):
         """Pipeline cfg for a client batch of ``batch``."""
@@ -158,18 +180,29 @@ class DeviceProver:
             w_std[b, :, : self.m_wires] = FRK.pack(list(w), mont=False)
         return w_std
 
-    def msm_results_many(self, witnesses: Sequence[Sequence[int]]) -> list:
-        """Batched fused pipeline over B independent witnesses; one
-        a/b1/c/h/b2 dict of host affine points per witness."""
+    def msm_results_many(self, witnesses: Sequence[Sequence[int]], mesh=None,
+                         axis: str = "clients") -> list:
+        """Batched fused pipeline over B independent witnesses (client-batch
+        data parallelism); one a/b1/c/h/b2 dict of host affine points per
+        witness.  With ``mesh`` (parallel/mesh.py) the client batch shards
+        over ``axis``: B must be a multiple of the axis size, and each shard
+        runs the pipeline over its slice of the witnesses on its device —
+        per-client proving is embarrassingly parallel, so no collective is
+        needed.  The results come back in client order."""
         for w in witnesses:
             if len(w) != self.m_wires:
                 raise ValueError(f"witness length {len(w)} != wires {self.m_wires}")
-        w_std = torch.from_numpy(self.pack_witnesses(witnesses)).to(self.device)
-        g1_out, g2_out = _prove_msms_impl(
-            self.cfg_for(len(witnesses)), self.n_pub, self.g1_pts, self.b2_pts,
-            self.rows, self.cols, self.coeffs, w_std,
-        )
-        return self.results_from_device(g1_out, g2_out)
+        B = len(witnesses)
+        w_std = torch.from_numpy(self.pack_witnesses(witnesses))
+        if mesh is None:
+            mesh = Mesh([self.device], axis)
+        D = mesh.shape[axis]
+        if B % D:
+            raise ValueError(f"client batch {B} does not split over the {D} devices of axis {axis!r}")
+        cfg = self.cfg_for(B // D)
+        outs = [_prove_msms_impl(cfg, self.n_pub, *self.on(dev), w)
+                for dev, w in zip(mesh.devices, mesh.shard(w_std, 0))]
+        return [r for g1_out, g2_out in outs for r in self.results_from_device(g1_out, g2_out)]
 
     def msm_results(self, witness: Sequence[int]) -> Dict[str, object]:
         """Single-witness fused pipeline (batch of one)."""

@@ -266,11 +266,16 @@ def groth16_prove_many(
     structure: ConstraintSystem,
     witnesses: Sequence[Sequence[int]],
     engine,
+    mesh=None,
+    axis: str = "clients",
 ) -> List[Proof]:
     """B independent witnesses of one circuit through one batched run of the
     fused device pipeline (client-batch data parallelism; the reference
     proves clients one `execSync` at a time,
-    full_system_simulation.mjs:1298-1343).  Needs a TorchEngine."""
+    full_system_simulation.mjs:1298-1343).  Needs a TorchEngine.
+
+    With ``mesh`` (parallel/mesh.py) the client batch shards over ``axis``
+    (DeviceProver.msm_results_many)."""
     from .device_prover import device_prover
     from .engine import TorchEngine
 
@@ -279,7 +284,7 @@ def groth16_prove_many(
     witnesses = [list(w) for w in witnesses]
     dp = device_prover(pk, structure, engine.device, engine.profile)
     proofs = []
-    for w, msms in zip(witnesses, dp.msm_results_many(witnesses)):
+    for w, msms in zip(witnesses, dp.msm_results_many(witnesses, mesh=mesh, axis=axis)):
         r, s = default_blinding(w)
         proofs.append(_assemble_proof(pk, w, msms, r, s))
     return proofs
