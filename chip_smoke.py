@@ -62,10 +62,19 @@ nothing of zkfl_tpu.  Phases (any failure raises and exits non-zero):
      prover over 4 shards on the production balance proof (2^19 domain)
      against the unsharded pipeline, bit for bit, and its proof verified.
      The shards are virtual: 3 or 4 shards on the one card, run one after
-     another.  LaunchCheck holds each kernel's widest launch.
+     another.  LaunchCheck holds each kernel's widest launch;
+  9. the port's measuring entry points, called as functions in this
+     process: (a) zkfl_tpu_torch.bench's measurements on phase 5's
+     RoundProver (headline, round, kernel rates; every extra present and
+     positive, the three rate MSMs equal to their repeated-base sums on the
+     host curve, a slice of its last K5 launch equal to permute_plain); (b)
+     scripts/round8.py's 8-client batched round (masks cancel); (c)
+     scripts/scaling.py's points N=8 and N=16 with cold setups on the card.
+     Every proof verifies; LaunchCheck holds each kernel's widest launch.
 fr.poseidon's row in the kernel report is phase 6's launches; each row's
 "paths" splits its launches by phase (setup: the cold setups of phases 5
-and 7; prod: phase 7's untapped run; parallel: phase 8).
+and 7; prod: phase 7's untapped run; parallel: phase 8; bench, round8 and
+scaling: phase 9, their counts set to 0 before each).
 The last two lines are the kernel report and the device line, both JSON.
 """
 
@@ -74,6 +83,8 @@ import json
 import os
 import sys
 import time
+
+from zkfl_tpu_torch.costs import bound, int32_peak
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIELD_LANES = 1 << 18    # main-path lane counts: matrix terms, NTT stages
@@ -88,16 +99,6 @@ CHECK_DEPTH = 12         # the depth whose root the native host tree checks
 PROD_DIM = 16            # features per sample (zkfl_tpu/fl/prod.py:37-40)
 SEED = 20261016
 
-# The card's rates for the bound (H100 SXM: NVIDIA's data sheet for the
-# memory; the integer rate is derived, not a data-sheet figure: 132 SMs x
-# 64 INT32 lanes x the SM clock, one 32-bit multiply-add per lane a cycle).
-HBM_BYTES_PER_S = 3.35e12
-SMS, INT32_LANES = 132, 64
-MONT = 2 * 8 * 8 + 8     # 32-bit multiply-adds of one CIOS Montgomery product
-SQR = 8 * 9 // 2 + 8 * 8 + 8  # of a Montgomery squaring (each cross product once)
-REDC = 8 * 8 + 8         # of a Montgomery reduction alone (a product by 1)
-WIDE = 8 * 8             # of a 512-bit product left unreduced
-NORMALIZE = 8 + 4 + 8    # of normalize_raw: fold top (R mod p), the 64-bit quotient, q p
 SLEEP_CYCLES = 10**8     # about 50 ms of the card's clock
 ROTATE = 8               # input sets per timed op: >= 112 MB between reuses
 
@@ -178,65 +179,6 @@ def rand_elems(gen, n, dev, p):
     x[7] &= 0x0FFFFFFF
     x[:, :3] = torch.from_numpy(ints_to_limbs([0, 1, p - 1])).to(dev)
     return x
-
-
-def poseidon_madds(t: int) -> int:
-    """32-bit multiply-adds of one width-t permutation, the fewest of a
-    correct design (the optimized form, zkfl_tpu_torch/poseidon/optimized.py):
-    x^5 (two squarings and a product) on t lanes in the R_F full rounds, then
-    a mix of t^2 wide products (WIDE each) and one reduction per lane; x^5 on
-    one lane in the R_P partial ones, then a t-term sparse row (t wide
-    products and a reduction) and t - 1 products for the column."""
-    from zkfl_tpu_torch.poseidon.grain import R_F, partial_rounds
-
-    sbox = 2 * SQR + MONT
-    full = t * sbox + t * t * WIDE + t * REDC
-    partial = sbox + t * WIDE + REDC + (t - 1) * MONT
-    return R_F * full + partial_rounds(t) * partial
-
-
-# Point op -> (32-bit multiply-adds, bytes read + written) per point: the
-# fewest of a correct design of RCB15 alg. 7 (add: 12 products and 2 by b3)
-# and 9 (double: 6 products, 2 squarings and 1 by b3).  G1: b3 = 9 takes
-# additions.  G2, with lazy reduction: an Fq2 product is 3 products left
-# unreduced and 2 reductions (Karatsuba), a sum of two Fq2 products 6 and 2,
-# a squaring 2 Fq products, a product by b3 = (9/82)(9 - u) additions and 2
-# Fq products.  G2 add: 6 products, 3 sums of two (X3, Y3, Z3) and 2 by
-# b3 = 4,144; double: 4 products, 2 squarings, 1 sum of two (Y3) and 1 by
-# b3 = 2,688.
-FQ2_MUL, FQ2_MUL_ADD = 3 * WIDE + 2 * REDC, 6 * WIDE + 2 * REDC
-POINT_COST = {"g1.padd": (12 * MONT, 288), "g1.pdbl": (6 * MONT + 2 * SQR, 192),
-              "g2.padd": (6 * FQ2_MUL + 3 * FQ2_MUL_ADD + 2 * 2 * MONT, 576),
-              "g2.pdbl": (4 * FQ2_MUL + 2 * 2 * MONT + FQ2_MUL_ADD + 2 * MONT, 384)}
-
-
-# op ("<field>.<op>", then " t=<width>" or " times=<doublings>") ->
-# (32-bit multiply-adds, bytes read + written) per lane
-def op_cost(name: str):
-    base, _, arg = name.partition(" ")
-    if base == "fr.poseidon":
-        t = int(arg.split("t=")[1])
-        return poseidon_madds(t), 2 * t * 32
-    if base in POINT_COST:
-        madds, nbytes = POINT_COST[base]
-        times = int(arg.split("times=")[1]) if arg else 1
-        return madds * times, nbytes
-    return {
-        "mont_mul": (MONT, 96), "mont_sqr": (SQR, 64), "add": (0, 96), "sub": (0, 96),
-        "to_mont": (MONT, 64), "from_mont": (REDC, 64), "mont_mul_const": (MONT, 64),
-        "mul_sub_mul_const": (2 * MONT, 128), "butterfly": (MONT, 160),
-        "normalize_raw": (NORMALIZE, 96),
-    }[base.split(".", 1)[1]]
-
-
-def bound(name: str, lanes: int, sm_mhz: float):
-    """(bound_ms, bound_by) of one call over ``lanes`` lanes: the larger of
-    the bytes over the memory rate and the multiply-adds over the integer
-    rate."""
-    madds, nbytes = op_cost(name)
-    t_bytes = lanes * nbytes / HBM_BYTES_PER_S
-    t_ops = lanes * madds / (SMS * INT32_LANES * sm_mhz * 1e6)
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def extreme_value() -> int:
@@ -1517,6 +1459,112 @@ def phase_parallel(dev, backend, prover, verified):
     return launches, tp["times"]
 
 
+BENCH_BUDGET = 300.0      # seconds for phase 9 (a), bench's measurements from the headline on
+SCALING_POINTS = (8, 16)  # phase 9 (c): N of the scaling sweep, cold setups on the card
+
+
+def check_bench(b) -> str:
+    """Phase 9 (a): every extra of a whole bench run present and positive,
+    the headline measured, the three rate MSMs held against their
+    repeated-base sums."""
+    from zkfl_tpu_torch import bench
+
+    res, extras = b.result, b.extras
+    if res["value"] <= 0 or res["vs_baseline"] <= 0:
+        raise AssertionError(f"bench: no headline: {res}")
+    if "skipped_after" in extras or "full_round_is_warmup" in extras:
+        raise AssertionError(f"bench: the budget cut the run: {extras}")
+    missing = [k for k in bench.EXTRA_KEYS if k not in extras]
+    if missing or set(extras) != set(bench.EXTRA_KEYS):
+        raise AssertionError(f"bench: extras {sorted(extras)}, expected {sorted(bench.EXTRA_KEYS)}")
+    for key, value in extras.items():
+        if key == "gpu":
+            ok = isinstance(value, str) and bool(value)
+        elif key == "round_phases_s":
+            ok = all(v >= 0 for v in value.values()) and value["balance_proofs"] > 0
+        else:
+            ok = value > 0
+        if not ok:
+            raise AssertionError(f"bench: extras[{key!r}] = {value!r}")
+    if len(b.checked) != 3:
+        raise AssertionError(f"bench: {len(b.checked)} rate MSMs checked, expected 3: {b.checked}")
+    return f"value {res['value']:.4f} s; {len(extras)} extras present and positive; " \
+           f"{', '.join(b.checked)} equal their repeated-base sums"
+
+
+def phase_entry_points(dev, backend, prover, artifacts):
+    """Phase 9: the port's measuring entry points, called as functions in
+    this process: (a) bench's measurements on phase 5's RoundProver, (b)
+    round8's 8-client round (its setups from phase 5's cache where the
+    domain matches), (c) scaling.run_point at SCALING_POINTS with cold
+    setups on the card.  LaunchCheck holds the widest launch of every
+    kernel, and a K5Tap a slice of bench's last Poseidon launch, against
+    the plain versions.  Returns each entry point's launch counts."""
+    import shutil
+
+    import torch
+
+    from zkfl_tpu_torch import bench
+    from zkfl_tpu_torch.fl.config import FLConfig
+    from zkfl_tpu_torch.ops.poseidon import PoseidonKernel
+    from zkfl_tpu_torch.scripts import round8, scaling
+
+    work = os.path.join(REPO, "build", "phase9_scaling")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    paths = {}
+
+    def part(name, fn):
+        backend.LAUNCHES.clear()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        paths[name] = dict(backend.LAUNCHES)
+        log(f"  [9 {name}] {time.time() - t0:8.3f} s  {out}")
+        log(f"  [9 {name}] launches {paths[name]}")
+
+    def run_bench():
+        b = bench.Bench(BENCH_BUDGET)
+        with K5Tap(SEED + 9) as tap:
+            bench.measure(b, prover)
+        log(f"  {json.dumps(b.result)}")
+        t, states, _, _, x, y = tap.launches[-1]
+        if max_abs_err(y, PoseidonKernel(t).permute_plain(x)) != 0:
+            raise AssertionError("bench: the last K5 launch disagrees with permute_plain")
+        return check_bench(b) + f"; {x.shape[1]} states of its last K5 launch ({states} states) " \
+                                "equal permute_plain"
+
+    def run_round8():
+        res, server = round8.run(dev, cache_dir=artifacts, log=log)
+        log(f"  {json.dumps(res)}")
+        check_round(server, FLConfig(num_clients=round8.NUM_CLIENTS))
+        return f"round {res['round_s']:.3f} s, {res['prove_per_client_s']:.4f} s of proving a client"
+
+    def run_scaling():
+        points = []
+        for n in SCALING_POINTS:
+            p = scaling.run_point(n, work, dev)
+            log(f"  {json.dumps(p)}")
+            points.append(f"N={n} prove {p['prove_s']:.3f} s (setups {p['setups_s']:.1f} s)")
+        return "; ".join(points) + "; every proof verifies"
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with LaunchCheck(SEED + 9) as chk:
+        part("bench", run_bench)
+        part("round8", run_round8)
+        part("scaling", run_scaling)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    chk.verify("entry points")
+    for name, launches in paths.items():
+        missing = [op for op in PROD_PATH if not launches.get(op)]
+        if missing:
+            raise AssertionError(f"phase 9 {name} never launched {missing}")
+    if not paths["bench"].get("fr.poseidon"):
+        raise AssertionError("phase 9 bench launched no fr.poseidon")
+    return paths
+
+
 # kernel op -> (source, the TPU kernel it replaces)
 KERNELS = {
     "fr.to_mont": ("field_ew.cu", "zkfl_tpu/ops/limb_kernels.py:374"),
@@ -1591,7 +1639,7 @@ def main() -> int:
     if sm_mhz is None:
         raise RuntimeError("nvidia-smi did not report the SM clock")
     log(f"  {json.dumps(info)}; max SM clock {sm_mhz:.0f} MHz: derived integer peak "
-        f"{SMS * INT32_LANES * sm_mhz * 1e6 / 1e12:.2f} T multiply-adds/s")
+        f"{int32_peak(sm_mhz) / 1e12:.2f} T multiply-adds/s")
 
     log("[2] build")
     t0 = time.time()
@@ -1644,9 +1692,14 @@ def main() -> int:
     parallel_launches, _ = phase_parallel(dev, backend, round_prover, prod_verified)
     log(f"  phase 8 in {time.time() - t0:.1f} s")
 
+    log("[9] entry points: bench, round8, scaling")
+    t0 = time.time()
+    entry_launches = phase_entry_points(dev, backend, round_prover, artifacts)
+    log(f"  phase 9 in {time.time() - t0:.1f} s")
+
     setups = collections.Counter(setup_launches) + collections.Counter(prod_setup_launches)
     by_path = {"setup": setups, "round": round_launches, "commit": commit_launches,
-               "prod": prod_launches, "parallel": parallel_launches}
+               "prod": prod_launches, "parallel": parallel_launches, **entry_launches}
     paths = {name: {k: v.get(name, 0) for k, v in by_path.items()} for name in KERNELS}
     launches = {name: sum(paths[name].values()) for name in KERNELS}
     for name in CHECK_ONLY:

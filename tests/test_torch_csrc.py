@@ -470,18 +470,19 @@ def test_poseidon_lazy_dot(harness, t):
 
 
 def test_point_and_normalize_counts():
-    """The yardsticks chip_smoke.py and kernel_stats.py count for K6 and K3:
-    G2 add 4,144 and double 2,688 multiply-adds a point (lazy Karatsuba,
-    squarings of 2 products, b3 by additions and 2 products), normalize_raw
-    20 a lane (a byte bound); K6's code per thread in products."""
-    import chip_smoke
+    """The yardsticks costs.py (chip_smoke.py's cost model) and
+    kernel_stats.py count for K6 and K3: G2 add 4,144 and double 2,688
+    multiply-adds a point (lazy Karatsuba, squarings of 2 products, b3 by
+    additions and 2 products), normalize_raw 20 a lane (a byte bound); K6's
+    code per thread in products."""
+    from zkfl_tpu_torch import costs
     from zkfl_tpu_torch import kernel_stats as ks
 
-    assert chip_smoke.POINT_COST["g2.padd"] == (4144, 576)
-    assert chip_smoke.POINT_COST["g2.pdbl"] == (2688, 384)
-    assert chip_smoke.op_cost("g2.pdbl times=8") == (8 * 2688, 384)
-    assert chip_smoke.op_cost("fr.normalize_raw") == (20, 96)
-    assert chip_smoke.bound("fr.normalize_raw", 1 << 18, 1980.0)[1] == "bytes"
+    assert costs.POINT_COST["g2.padd"] == (4144, 576)
+    assert costs.POINT_COST["g2.pdbl"] == (2688, 384)
+    assert costs.op_cost("g2.pdbl times=8") == (8 * 2688, 384)
+    assert costs.op_cost("fr.normalize_raw") == (20, 96)
+    assert costs.bound("fr.normalize_raw", 1 << 18, 1980.0)[1] == "bytes"
     got = {name: ks.products_of(name, 3)[0] * 136 for name in ("g2_padd", "g2_pdbl")}
     assert got == {"g2_padd": pytest.approx(2456), "g2_pdbl": pytest.approx(1536)}
 

@@ -1,16 +1,15 @@
 """The optimized form of the Poseidon permutation
 (zkfl_tpu_torch/poseidon/optimized.py), whose constants K5 runs, held against
-zkfl_tpu's reference permutation, and the counts that chip_smoke.py and
-kernel_stats.py derive for K5."""
+zkfl_tpu's reference permutation, and the counts that costs.py (the cost
+model of chip_smoke.py) and kernel_stats.py derive for K5."""
 
 import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from zkfl_tpu.ops.poseidon_pallas import _n_subs
 from zkfl_tpu.poseidon.reference import poseidon_permutation
-from zkfl_tpu_torch import kernel_stats
+from zkfl_tpu_torch import costs, kernel_stats
 from zkfl_tpu_torch.field.bn254 import FR
 from zkfl_tpu_torch.ops.limb_kernels import FRK
 from zkfl_tpu_torch.ops.poseidon import PoseidonKernel
@@ -67,8 +66,8 @@ def test_poseidon_subs_match_zkfl_tpu():
 
 def test_poseidon_bound_is_the_fewest_operations():
     """28.612 / 2.969 / 4.100 ms at t = 17 / 2 / 3, 2^20 states, 1980 MHz."""
-    got = {t: chip_smoke.bound(f"fr.poseidon t={t}", 1 << 20, 1980.0) for t in (17, 2, 3)}
-    assert chip_smoke.poseidon_madds(17) == 456416
+    got = {t: costs.bound(f"fr.poseidon t={t}", 1 << 20, 1980.0) for t in (17, 2, 3)}
+    assert costs.poseidon_madds(17) == 456416
     assert {t: round(ms, 3) for t, (ms, _) in got.items()} == {17: 28.612, 2: 2.969, 3: 4.100}
     assert all(by == "operations" for _, by in got.values())
 

@@ -63,7 +63,8 @@ def test_port_files_found():
     assert "zkfl_tpu_torch/ops/poseidon.py" in PORT_FILES
     for rel in ("groth16/device_setup.py", "r1cs/compiled.py", "fl/prod.py",
                 "groth16/serialize.py", "groth16/binformat.py", "parallel/__init__.py",
-                "parallel/mesh.py", "parallel/msm.py", "parallel/ntt.py", "parallel/prover.py"):
+                "parallel/mesh.py", "parallel/msm.py", "parallel/ntt.py", "parallel/prover.py",
+                "costs.py", "bench.py", "scripts/round8.py", "scripts/scaling.py"):
         assert f"zkfl_tpu_torch/{rel}" in PORT_FILES
     assert len(PORT_FILES) > 40
 
