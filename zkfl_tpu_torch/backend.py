@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from . import trace
+
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "zkfl_tpu_torch"
@@ -172,14 +174,15 @@ def build() -> Path:
 def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        handle.zk_error_string.argtypes = [ctypes.c_int]
-        handle.zk_error_string.restype = ctypes.c_char_p
-        _lib = handle
+        with trace.span("setup.kernels"):
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.zk_error_string.argtypes = [ctypes.c_int]
+            handle.zk_error_string.restype = ctypes.c_char_p
+            _lib = handle
     return _lib
 
 

@@ -15,10 +15,12 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+from .. import trace
 from ..poseidon.reference import poseidon
 
 
 class MerkleTree:
+    @trace.spanned("commit.tree")
     def __init__(self, leaf_hashes: Sequence[int], depth: int):
         padded = 1 << depth
         if len(leaf_hashes) > padded:

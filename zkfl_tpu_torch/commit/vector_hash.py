@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+from .. import trace
 from ..field.bn254 import FR
 from ..poseidon.reference import poseidon as _poseidon_py
 
@@ -49,6 +50,11 @@ def vector_hash_many(rows: Sequence[Sequence[int]]) -> List[int]:
 
 
 def vector_hash(values: Sequence[int]) -> int:
+    with trace.span("commit.hash"):
+        return _vector_hash(values)
+
+
+def _vector_hash(values: Sequence[int]) -> int:
     vals = [v % FR for v in values]
     if len(vals) <= CHUNK_SIZE:
         return poseidon(vals)
@@ -61,9 +67,10 @@ def sample_hash(features: Sequence[int], label: int) -> int:
 
 
 def gradient_commitment(gradient: Sequence[int], client_id: int, round_num: int) -> int:
-    grad_hash = vector_hash(gradient)
-    meta_hash = poseidon([client_id, round_num])
-    return poseidon([grad_hash, meta_hash])
+    with trace.span("commit.hash"):
+        grad_hash = _vector_hash(gradient)
+        meta_hash = poseidon([client_id, round_num])
+        return poseidon([grad_hash, meta_hash])
 
 
 def weight_commitment(weights: Sequence[int]) -> int:

@@ -25,10 +25,9 @@ import argparse
 import json
 import os
 import sys
-import time
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
-from .. import backend
+from .. import backend, trace
 from ..commit.merkle import MerkleTree
 from ..commit.vector_hash import gradient_commitment, sample_hash
 from ..field.bn254 import FR, domain_size_for
@@ -141,14 +140,15 @@ def _structure(params, cache_dir: str, log):
     COO cache and skips the Python constraint build; the cold path builds
     the structure once, fills the cache, and hands the structure on for the
     trusted setup."""
-    cc = compiled_cached(params, cache_dir)
-    if cc is not None:
-        return cc, None
-    t0 = time.time()
-    cs = build_structure(params)
-    log(f"{params.name}: structure built in {time.time()-t0:.1f}s "
-        f"({len(cs.constraints)} constraints)")
-    return compile_and_cache(cs, cache_dir), cs
+    with trace.span("setup.structure"):
+        cc = compiled_cached(params, cache_dir)
+        if cc is not None:
+            return cc, None
+        t0 = trace.clock_ns()
+        cs = build_structure(params)
+        log(f"{params.name}: structure built in {(trace.clock_ns() - t0) / 1e9:.1f}s "
+            f"({len(cs.constraints)} constraints)")
+        return compile_and_cache(cs, cache_dir), cs
 
 
 def _setup(cc, full, params, cache_dir: str, domain, device, log):
@@ -159,11 +159,12 @@ def _setup(cc, full, params, cache_dir: str, domain, device, log):
     the zkey cache key is the same whether or not a profile-bearing engine
     is passed."""
     dom = domain or domain_size_for(n_constraints(cc) + 1)
-    try:
-        return setup_cached(cc if full is None else full, cache_dir, domain=dom, device=device)
-    except ValueError:
-        log(f"{params.name}: zkey cache cold — rebuilding full structure")
-        return setup_cached(build_structure(params), cache_dir, domain=dom, device=device)
+    with trace.span("setup.keys"):
+        try:
+            return setup_cached(cc if full is None else full, cache_dir, domain=dom, device=device)
+        except ValueError:
+            log(f"{params.name}: zkey cache cold — rebuilding full structure")
+            return setup_cached(build_structure(params), cache_dir, domain=dom, device=device)
 
 
 def verify_binding(balance_publics: List[int], v5_publics: List[int]) -> bool:
@@ -171,6 +172,67 @@ def verify_binding(balance_publics: List[int], v5_publics: List[int]) -> bool:
     wire layout per build_balance declaration order) must equal the
     training proof's root_D (public #3) — integration_test.mjs:672-697."""
     return balance_publics[1] == v5_publics[2]
+
+
+class ProdKeys(NamedTuple):
+    """The two circuits' compiled forms and keys."""
+    bal_cc: object
+    bal_pk: object
+    bal_vk: object
+    v5_cc: object
+    v5_pk: object
+    v5_vk: object
+
+
+def prod_keys(cache_dir: str, engine: TorchEngine, log, timings: Dict | None = None) -> ProdKeys:
+    """Both circuits' compiled forms and keys (cached, else built and set up
+    on the engine's device); ``structures_s`` and ``setups_s`` into ``timings``."""
+    t = {} if timings is None else timings
+    with trace.timed(t, "structures_s"):
+        bal_cc, bal_full = _structure(BALANCE_PARAMS, cache_dir, log)
+        v5_cc, v5_full = _structure(V5_PARAMS, cache_dir, log)
+
+    # Per-circuit native domains: the two circuits differ 14x in size
+    # (357,764 vs 25,858 constraints), so padding sgd_v5 to the balance
+    # circuit's 2^19 domain would waste device work on every v5 proof.
+    domain = getattr(engine.profile, "domain", None)
+    with trace.timed(t, "setups_s"):
+        bal_pk, bal_vk = _setup(bal_cc, bal_full, BALANCE_PARAMS, cache_dir, domain,
+                                engine.device, log)
+        v5_pk, v5_vk = _setup(v5_cc, v5_full, V5_PARAMS, cache_dir, domain, engine.device, log)
+    log(f"setups ready in {t['setups_s']:.1f}s")
+    return ProdKeys(bal_cc, bal_pk, bal_vk, v5_cc, v5_pk, v5_vk)
+
+
+def prod_round(keys: ProdKeys, engine: TorchEngine, seed: int = PROD_SEED, log=lambda m: None,
+               timings: Dict | None = None, first_proves: bool = False) -> Dict[str, bool]:
+    """One client's round: the dataset and its commitment, both witnesses,
+    both proves, both verifies and the binding on root_D.  With
+    ``first_proves`` each circuit is proved twice and the first prove (the
+    key upload) is timed apart, as ``<circuit>_prove_first_s``."""
+    t = {} if timings is None else timings
+    with trace.timed(t, "dataset_s"):
+        ds = generate_dataset(seed)
+    with trace.timed(t, "witness_s"):
+        bal_wit = generate_witness(BALANCE_PARAMS, balance_inputs(ds)).witness
+        v5_wit = generate_witness(V5_PARAMS, v5_inputs(ds)).witness
+    log(f"witnesses in {t['witness_s']:.2f}s")
+
+    for tag in ("_first", "") if first_proves else ("",):
+        with trace.timed(t, f"balance_prove{tag}_s"):
+            bal_proof = groth16_prove(keys.bal_pk, keys.bal_cc, bal_wit, engine=engine)
+        with trace.timed(t, f"v5_prove{tag}_s"):
+            v5_proof = groth16_prove(keys.v5_pk, keys.v5_cc, v5_wit, engine=engine)
+        if tag:
+            log(f"first proves: balance {t['balance_prove_first_s']:.1f}s, "
+                f"v5 {t['v5_prove_first_s']:.1f}s")
+    t["prove_total_s"] = t["balance_prove_s"] + t["v5_prove_s"]
+
+    with trace.timed(t, "verify_s"):
+        ok_bal = groth16_verify(keys.bal_vk, bal_proof)
+        ok_v5 = groth16_verify(keys.v5_vk, v5_proof)
+    return {"balance_verified": ok_bal, "v5_verified": ok_v5,
+            "binding_ok": verify_binding(bal_proof.public_signals, v5_proof.public_signals)}
 
 
 def run_prod_integration(
@@ -185,65 +247,13 @@ def run_prod_integration(
     if engine is None:
         engine = TorchEngine(backend.device("cuda"))
     timings: Dict[str, float] = {}
-    t_all = time.time()
-
-    # --- circuits (cached compiled forms + cached setups) ----------------
-    t0 = time.time()
-    bal_cc, bal_full = _structure(BALANCE_PARAMS, cache_dir, log)
-    v5_cc, v5_full = _structure(V5_PARAMS, cache_dir, log)
-    timings["structures_s"] = time.time() - t0
-
-    # Per-circuit native domains: the two circuits differ 14x in size
-    # (357,764 vs 25,858 constraints), so padding sgd_v5 to the balance
-    # circuit's 2^19 domain would waste device work on every v5 proof.
-    domain = getattr(engine.profile, "domain", None)
-    t0 = time.time()
-    bal_pk, bal_vk = _setup(bal_cc, bal_full, BALANCE_PARAMS, cache_dir, domain, engine.device, log)
-    v5_pk, v5_vk = _setup(v5_cc, v5_full, V5_PARAMS, cache_dir, domain, engine.device, log)
-    del bal_full, v5_full
-    timings["setups_s"] = time.time() - t0
-    log(f"setups ready in {timings['setups_s']:.1f}s")
-
-    # --- dataset + witnesses ---------------------------------------------
-    t0 = time.time()
-    ds = generate_dataset()
-    timings["dataset_s"] = time.time() - t0
-    t0 = time.time()
-    bal_wit = generate_witness(BALANCE_PARAMS, balance_inputs(ds))
-    v5_wit = generate_witness(V5_PARAMS, v5_inputs(ds))
-    timings["witness_s"] = time.time() - t0
-    log(f"witnesses in {timings['witness_s']:.2f}s")
-
-    # --- proofs (first = key upload + run, second = steady state) --------
-    t0 = time.time()
-    bal_proof = groth16_prove(bal_pk, bal_cc, bal_wit.witness, engine=engine)
-    timings["balance_prove_first_s"] = time.time() - t0
-    t0 = time.time()
-    v5_proof = groth16_prove(v5_pk, v5_cc, v5_wit.witness, engine=engine)
-    timings["v5_prove_first_s"] = time.time() - t0
-    log(f"first proves: balance {timings['balance_prove_first_s']:.1f}s, "
-        f"v5 {timings['v5_prove_first_s']:.1f}s")
-    t0 = time.time()
-    bal_proof = groth16_prove(bal_pk, bal_cc, bal_wit.witness, engine=engine)
-    timings["balance_prove_s"] = time.time() - t0
-    t0 = time.time()
-    v5_proof = groth16_prove(v5_pk, v5_cc, v5_wit.witness, engine=engine)
-    timings["v5_prove_s"] = time.time() - t0
-    timings["prove_total_s"] = timings["balance_prove_s"] + timings["v5_prove_s"]
-
-    # --- verify + binding --------------------------------------------------
-    t0 = time.time()
-    ok_bal = groth16_verify(bal_vk, bal_proof)
-    ok_v5 = groth16_verify(v5_vk, v5_proof)
-    timings["verify_s"] = time.time() - t0
-    bound = verify_binding(bal_proof.public_signals, v5_proof.public_signals)
-    timings["total_s"] = time.time() - t_all
+    with trace.timed(timings, "total_s"):
+        keys = prod_keys(cache_dir, engine, log, timings)
+        checks = prod_round(keys, engine, log=log, timings=timings, first_proves=True)
 
     result = {
-        "balance_verified": ok_bal,
-        "v5_verified": ok_v5,
-        "binding_ok": bound,
-        "constraints": {"balance": bal_cc.n_constraints, "v5": v5_cc.n_constraints},
+        **checks,
+        "constraints": {"balance": keys.bal_cc.n_constraints, "v5": keys.v5_cc.n_constraints},
         "baseline_prove_s": 231.5,  # Report.pdf Table 5, N=128
         "vs_baseline": round(231.5 / max(timings["prove_total_s"], 1e-9), 2),
         "timings": {k: round(v, 3) for k, v in timings.items()},

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from .. import trace
 from ..groth16.device_prover import PipelineProfile
 from ..groth16.prover import groth16_prove, groth16_prove_many
 from ..groth16.setup import setup_cached_many
@@ -33,16 +34,18 @@ class RoundProver:
         self.engine = engine
         cache = cache_dir or config.artifacts_dir
 
-        self.balance_cs = build_structure(config.balance_params)
-        self.training_cs = build_structure(config.training_params)
-        self.secagg_cs = build_structure(config.secagg_params)
+        with trace.span("setup.structure"):
+            self.balance_cs = build_structure(config.balance_params)
+            self.training_cs = build_structure(config.training_params)
+            self.secagg_cs = build_structure(config.secagg_params)
         structures = [self.balance_cs, self.training_cs, self.secagg_cs]
         domain = device = None  # HostEngine: natural domains, the pure-Python ladder
         if self.can_batch:
             if engine.profile is None:
                 engine.profile = PipelineProfile.cover(structures)
             domain, device = engine.profile.domain, engine.device
-        keys = setup_cached_many(structures, cache, domain=domain, device=device)
+        with trace.span("setup.keys"):
+            keys = setup_cached_many(structures, cache, domain=domain, device=device)
         (self.balance_pk, self.balance_vk), (self.training_pk, self.training_vk), \
             (self.secagg_pk, self.secagg_vk) = keys
 

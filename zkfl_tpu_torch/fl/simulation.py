@@ -12,11 +12,11 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
+from contextlib import contextmanager
 from dataclasses import replace
 from typing import Dict, Optional
 
-from .. import backend
+from .. import backend, trace
 from ..groth16.engine import HostEngine, TorchEngine
 from ..poseidon.reference import poseidon
 from .client import Client, SharedLCG
@@ -56,87 +56,78 @@ def run_round(
     (full_system_simulation.mjs:1298-1343); ``mesh`` (parallel/mesh.py)
     additionally shards each client batch over its "clients" axis.
     """
-    t_start = time.time()
     timings = {}
 
+    @contextmanager
     def phase(name):
-        timings[name] = time.time()
-
-    def done(name):
-        timings[name] = time.time() - timings[name]
+        with trace.timed(timings, name, f"fl.{name}"):
+            yield
         if verbose:
             print(f"[{timings[name]:8.2f}s] {name}")
 
-    phase("setup")
-    if prover is None:
-        prover = RoundProver(config, engine or TorchEngine(backend.device("cuda")))
-    server = Server(config, prover)
-    clients = [Client(i, config, prover) for i in range(1, config.num_clients + 1)]
-    if batch_clients is None:
-        batch_clients = prover.can_batch and config.num_clients > 1
-    done("setup")
+    with trace.timed(timings, "total", "fl.round"):
+        with phase("setup"):
+            if prover is None:
+                prover = RoundProver(config, engine or TorchEngine(backend.device("cuda")))
+            server = Server(config, prover)
+            clients = [Client(i, config, prover) for i in range(1, config.num_clients + 1)]
+            if batch_clients is None:
+                batch_clients = prover.can_batch and config.num_clients > 1
 
-    # Phase 0/1: model init, dataset generation, registration.
-    phase("datasets")
-    server.initialize_model()
-    rng = SharedLCG(config.seed)
-    for c in clients:
-        server.register_client(c.client_id, c.generate_private_dataset(rng))
-    done("datasets")
+        # Phase 0/1: model init, dataset generation, registration.
+        with phase("datasets"):
+            server.initialize_model()
+            rng = SharedLCG(config.seed)
+            for c in clients:
+                server.register_client(c.client_id, c.generate_private_dataset(rng))
 
-    # Phase 2: dataset commitments.
-    phase("commitments")
-    for c in clients:
-        server.receive_dataset_commitment(c.compute_dataset_commitment())
-    done("commitments")
+        # Phase 2: dataset commitments.
+        with phase("commitments"):
+            for c in clients:
+                server.receive_dataset_commitment(c.compute_dataset_commitment())
 
-    # Phase 3: balance proofs.
-    phase("balance_proofs")
-    if batch_clients:
-        proofs = prover.prove_balance_many([c.balance_witness() for c in clients], mesh=mesh)
-        packages = [c.package_balance(p) for c, p in zip(clients, proofs)]
-    else:
-        packages = [c.generate_balance_proof() for c in clients]
-    for c, pkg in zip(clients, packages):
-        ok = server.verify_balance_proof(pkg)
-        assert ok, f"balance proof rejected for client {c.client_id}: {server.log}"
-    done("balance_proofs")
+        # Phase 3: balance proofs.
+        with phase("balance_proofs"):
+            if batch_clients:
+                proofs = prover.prove_balance_many([c.balance_witness() for c in clients],
+                                                   mesh=mesh)
+                packages = [c.package_balance(p) for c, p in zip(clients, proofs)]
+            else:
+                packages = [c.generate_balance_proof() for c in clients]
+            for c, pkg in zip(clients, packages):
+                ok = server.verify_balance_proof(pkg)
+                assert ok, f"balance proof rejected for client {c.client_id}: {server.log}"
 
-    # Phase 4: training proofs.
-    phase("training_proofs")
-    if batch_clients:
-        proofs = prover.prove_training_many(
-            [c.training_witness(server.global_model) for c in clients], mesh=mesh
-        )
-        packages = [c.package_training(p) for c, p in zip(clients, proofs)]
-    else:
-        packages = [c.train_and_generate_proof(server.global_model) for c in clients]
-    for c, pkg in zip(clients, packages):
-        ok = server.verify_training_proof(pkg)
-        assert ok, f"training proof rejected for client {c.client_id}: {server.log}"
-    done("training_proofs")
+        # Phase 4: training proofs.
+        with phase("training_proofs"):
+            if batch_clients:
+                proofs = prover.prove_training_many(
+                    [c.training_witness(server.global_model) for c in clients], mesh=mesh
+                )
+                packages = [c.package_training(p) for c, p in zip(clients, proofs)]
+            else:
+                packages = [c.train_and_generate_proof(server.global_model) for c in clients]
+            for c, pkg in zip(clients, packages):
+                ok = server.verify_training_proof(pkg)
+                assert ok, f"training proof rejected for client {c.client_id}: {server.log}"
 
-    # Phase 4.5: secure aggregation proofs.
-    phase("secagg_proofs")
-    shared_keys = simulate_key_exchange(config.num_clients)
-    if batch_clients:
-        proofs = prover.prove_secagg_many([c.secagg_witness(shared_keys) for c in clients],
-                                          mesh=mesh)
-        packages = [c.package_secagg(p) for c, p in zip(clients, proofs)]
-    else:
-        packages = [c.generate_secagg_proof(shared_keys) for c in clients]
-    for c, pkg in zip(clients, packages):
-        ok = server.verify_secagg_proof(pkg)
-        assert ok, f"secagg proof rejected for client {c.client_id}: {server.log}"
-    done("secagg_proofs")
+        # Phase 4.5: secure aggregation proofs.
+        with phase("secagg_proofs"):
+            shared_keys = simulate_key_exchange(config.num_clients)
+            if batch_clients:
+                proofs = prover.prove_secagg_many([c.secagg_witness(shared_keys) for c in clients],
+                                                  mesh=mesh)
+                packages = [c.package_secagg(p) for c, p in zip(clients, proofs)]
+            else:
+                packages = [c.generate_secagg_proof(shared_keys) for c in clients]
+            for c, pkg in zip(clients, packages):
+                ok = server.verify_secagg_proof(pkg)
+                assert ok, f"secagg proof rejected for client {c.client_id}: {server.log}"
 
-    # Phase 5: aggregate (masks cancel).
-    phase("aggregate")
-    result = server.aggregate_updates()
-    assert result is not None, "no verified clients to aggregate"
-    done("aggregate")
-
-    timings["total"] = time.time() - t_start
+        # Phase 5: aggregate (masks cancel).
+        with phase("aggregate"):
+            result = server.aggregate_updates()
+            assert result is not None, "no verified clients to aggregate"
     if verbose:
         summary = server.get_summary()
         print(f"summary: {summary}")

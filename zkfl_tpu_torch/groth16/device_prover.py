@@ -16,6 +16,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import trace
 from ..field.bn254 import domain_size_for
 from ..field.limbs import N_LIMBS
 from ..ops import msm
@@ -66,11 +67,14 @@ def _prove_msms_impl(cfg, n_pub: int, g1_pts, b2_pts, rows, cols, coeffs, w_std)
     dev = w_std.device
 
     w_lm = w_std.permute(1, 0, 2)  # [8, B, m]
-    w_mont = FRK.to_mont(w_lm.reshape(N_LIMBS, B * m)).reshape(N_LIMBS, B, m)
-    evals = matrix_evals(rows, cols, coeffs, w_mont, domain)
-    h_std = compute_h(evals)  # [8, B, domain] standard form
+    with trace.span("pipeline.to_mont"):
+        w_mont = FRK.to_mont(w_lm.reshape(N_LIMBS, B * m)).reshape(N_LIMBS, B, m)
+    with trace.span("pipeline.qap"):
+        evals = matrix_evals(rows, cols, coeffs, w_mont, domain)
+        h_std = compute_h(evals)  # [8, B, domain] standard form
 
-    scalars, fam, g2_scalars = msm_scalars(n_pub, w_lm, h_std, n_max)
+    with trace.span("pipeline.scalars"):
+        scalars, fam, g2_scalars = msm_scalars(n_pub, w_lm, h_std, n_max)
     g1_out = msm._msm_impl(g1_pts, scalars, msm._G1Ops, wc_g1, wbits, row_map=fam)
     g2_out = msm._msm_impl(
         b2_pts, g2_scalars, msm._G2Ops, wc_g2, wbits,
@@ -110,6 +114,7 @@ class DeviceProver:
     With a ``PipelineProfile`` the point queries, witness and COO matrices
     pad to the profile's shapes (pk.domain must equal profile.domain)."""
 
+    @trace.spanned("setup.device_key")
     def __init__(self, pk: ProvingKey, structure: ConstraintSystem, device: torch.device,
                  profile: Optional[PipelineProfile] = None):
         compiled = getattr(structure, "is_compiled", False)
@@ -174,6 +179,7 @@ class DeviceProver:
             msm._auto_wbits(self.n_max),
         )
 
+    @trace.spanned("pipeline.pack")
     def pack_witnesses(self, witnesses: Sequence[Sequence[int]]) -> np.ndarray:
         w_std = np.zeros((len(witnesses), N_LIMBS, self.m_pad), dtype=np.int32)
         for b, w in enumerate(witnesses):
@@ -200,8 +206,10 @@ class DeviceProver:
         if B % D:
             raise ValueError(f"client batch {B} does not split over the {D} devices of axis {axis!r}")
         cfg = self.cfg_for(B // D)
+        with trace.span("pipeline.upload"), trace.sync(mesh.devices[0], h2d=w_std.nbytes):
+            shards = mesh.shard(w_std, 0)
         outs = [_prove_msms_impl(cfg, self.n_pub, *self.on(dev), w)
-                for dev, w in zip(mesh.devices, mesh.shard(w_std, 0))]
+                for dev, w in zip(mesh.devices, shards)]
         return [r for g1_out, g2_out in outs for r in self.results_from_device(g1_out, g2_out)]
 
     def msm_results(self, witness: Sequence[int]) -> Dict[str, object]:
@@ -209,9 +217,12 @@ class DeviceProver:
         return self.msm_results_many([witness])[0]
 
     @staticmethod
+    @trace.spanned("pipeline.decode")
     def results_from_device(g1_out, g2_out) -> list:
-        g1_np = g1_out.cpu().numpy()  # [3, 8, B, 4]
-        g2_np = g2_out.cpu().numpy()  # [3, 2, 8, B]
+        with trace.sync(g1_out.device, d2h=g1_out.nbytes):
+            g1_np = g1_out.cpu().numpy()  # [3, 8, B, 4]
+        with trace.sync(g2_out.device, d2h=g2_out.nbytes):
+            g2_np = g2_out.cpu().numpy()  # [3, 2, 8, B]
         return [
             {
                 "a": pk_ops.g1_from_device(g1_np[:, :, b, 0]),
@@ -232,6 +243,7 @@ def device_prover(pk: ProvingKey, structure: ConstraintSystem, device: torch.dev
     key = (id(pk), id(structure), str(device), profile)
     prover = _prover_cache.get(key)
     if prover is None:
+        trace.count("pipeline.device_prover_builds")
         prover = DeviceProver(pk, structure, device, profile)
         _prover_cache[key] = prover
     return prover

@@ -21,6 +21,7 @@ import secrets
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
+from .. import trace
 from ..field.bn254 import FR
 from ..field.curve import (
     G2_JAC_INF,
@@ -112,6 +113,7 @@ def msm_g2(points, scalars, window: int = 0):
     return g2_from_jacobian(total)
 
 
+@trace.spanned("groth16.scalar_mul")
 def mul_g2(p, k: int):
     k %= FR
     if p is None or k == 0:
@@ -146,6 +148,7 @@ def default_blinding(witness: Sequence[int]) -> Tuple[int, int]:
     return secrets.randbelow(FR), secrets.randbelow(FR)
 
 
+@trace.spanned("groth16.assemble")
 def _assemble_proof(pk: ProvingKey, witness: Sequence[int], msms: dict,
                     r: int, s: int) -> Proof:
     """Shared proof assembly from the five MSM results (host affine points,
@@ -187,6 +190,7 @@ def _assemble_proof(pk: ProvingKey, witness: Sequence[int], msms: dict,
     )
 
 
+@trace.spanned("groth16.prove")
 def groth16_prove(
     pk: ProvingKey,
     structure: ConstraintSystem,
@@ -261,6 +265,7 @@ def groth16_prove(
     return _assemble_proof(pk, witness, msms, r, s)
 
 
+@trace.spanned("groth16.prove")
 def groth16_prove_many(
     pk: ProvingKey,
     structure: ConstraintSystem,
@@ -290,6 +295,7 @@ def groth16_prove_many(
     return proofs
 
 
+@trace.spanned("groth16.scalar_mul")
 def mul_g1(p, k: int):
     """Scalar mul returning Jacobian (internal helper)."""
     k %= FR

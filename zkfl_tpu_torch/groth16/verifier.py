@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+from .. import trace
 from ..field.bn254 import FR
 from ..field.curve import g1_add_jac, g1_from_jacobian, g1_neg, g1_to_jacobian
 from ..field.pairing import pairing_check
@@ -20,6 +21,7 @@ from .prover import Proof, mul_g1
 from .setup import VerifyingKey
 
 
+@trace.spanned("groth16.vk_x")
 def compute_vk_x(vk: VerifyingKey, public_signals: Sequence[int]):
     if len(public_signals) != len(vk.ic) - 1:
         raise ValueError(
@@ -31,6 +33,7 @@ def compute_vk_x(vk: VerifyingKey, public_signals: Sequence[int]):
     return g1_from_jacobian(acc)
 
 
+@trace.spanned("groth16.verify")
 def groth16_verify(vk: VerifyingKey, proof: Proof, public_signals: Sequence[int] = None) -> bool:
     publics = proof.public_signals if public_signals is None else list(public_signals)
     try:
@@ -50,7 +53,8 @@ def groth16_verify(vk: VerifyingKey, proof: Proof, public_signals: Sequence[int]
     # library is unavailable or an input is degenerate.
     from ..native import pairing_check_native
 
-    native = pairing_check_native(pairs)
-    if native is not None:
-        return native
-    return pairing_check(pairs)
+    with trace.span("groth16.pairing"):
+        native = pairing_check_native(pairs)
+        if native is not None:
+            return native
+        return pairing_check(pairs)

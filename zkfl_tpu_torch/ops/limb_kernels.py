@@ -25,7 +25,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import backend
+from .. import backend, trace
 from ..field.limbs import FQ_CONSTS, FR_CONSTS, N_LIMBS, FieldConsts, ints_to_limbs, limbs_to_ints
 
 M16 = 0xFFFF
@@ -338,7 +338,9 @@ class TorchField:
 
     def one_mont(self, device: torch.device) -> torch.Tensor:
         """R mod p as int32 [8, 1]."""
-        return torch.from_numpy(ints_to_limbs([self.mont_r])).to(device)
+        r = ints_to_limbs([self.mont_r])
+        with trace.sync(device, h2d=r.nbytes):  # a blocking copy from pageable memory
+            return torch.from_numpy(r).to(device)
 
 
 FRK = TorchField(FR_CONSTS, 0)

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..field.bn254 import FR
 
 from . import point_kernels as pk
@@ -86,47 +87,53 @@ def _window_sums(points_flat, digits, ops, nb: int, row_map=None):
     R = n // SERIAL
 
     # 1. sort each (msm, window) row by digit, descending
-    perm = torch.argsort(digits, dim=-1, descending=True)
-    row = torch.arange(m, device=dev) if row_map is None else row_map.to(dev)
-    flat_idx = (row[:, None, None] * n + perm).reshape(-1)
-    sorted_pts = points_flat.index_select(-1, flat_idx).reshape(lead + (m, W, R, SERIAL))
+    with trace.span("msm.sort"):
+        perm = torch.argsort(digits, dim=-1, descending=True)
+        row = torch.arange(m, device=dev) if row_map is None else row_map.to(dev)
+        flat_idx = (row[:, None, None] * n + perm).reshape(-1)
+        sorted_pts = points_flat.index_select(-1, flat_idx).reshape(lead + (m, W, R, SERIAL))
 
-    # 2a. serial inclusive scan within each 32-lane row
-    prev = sorted_pts[..., 0].contiguous()
-    scanned = [prev]
-    for c in range(1, SERIAL):
-        prev = ops.padd(prev, sorted_pts[..., c].contiguous())
-        scanned.append(prev)
-    within = torch.stack(scanned, dim=-1)  # lead + (m, W, R, SERIAL)
-    del sorted_pts, scanned
+    with trace.span("msm.scan"):
+        # 2a. serial inclusive scan within each 32-lane row
+        prev = sorted_pts[..., 0].contiguous()
+        scanned = [prev]
+        for c in range(1, SERIAL):
+            prev = ops.padd(prev, sorted_pts[..., c].contiguous())
+            scanned.append(prev)
+        within = torch.stack(scanned, dim=-1)  # lead + (m, W, R, SERIAL)
+        del sorted_pts, scanned
 
-    # 2b. Hillis-Steele inclusive scan over the R row totals
-    t = within[..., SERIAL - 1].contiguous()
-    r_lane = torch.arange(R, device=dev)
-    r_inf = ops.inf((m, W, R), dev)
-    s = 1
-    while s < R:
-        t = ops.padd(t, torch.where(r_lane >= s, torch.roll(t, s, dims=-1), r_inf))
-        s *= 2
-    p_excl = torch.cat([ops.inf((m, W, 1), dev), t[..., : R - 1]], dim=-1)
+        # 2b. Hillis-Steele inclusive scan over the R row totals
+        t = within[..., SERIAL - 1].contiguous()
+        r_lane = torch.arange(R, device=dev)
+        r_inf = ops.inf((m, W, R), dev)
+        s = 1
+        while s < R:
+            t = ops.padd(t, torch.where(r_lane >= s, torch.roll(t, s, dims=-1), r_inf))
+            s *= 2
+        p_excl = torch.cat([ops.inf((m, W, 1), dev), t[..., : R - 1]], dim=-1)
 
     # 3. histogram -> cnt_k = #{digit >= k}; U[cnt_k - 1] = within + p_excl
-    mw = torch.arange(m, device=dev)[:, None, None] * W + torch.arange(W, device=dev)[None, :, None]
-    seg = (mw * nb + digits).reshape(-1)
-    hist = torch.bincount(seg, minlength=m * W * nb).reshape(m, W, nb)
-    cnt = hist.flip(-1).cumsum(-1).flip(-1)  # cnt[d] = #{digit >= d}
-    cnt_k = cnt[..., 1:]                      # k = 1 .. nb-1
-    pos = (cnt_k - 1).clamp(min=0)
-    u_within = within.reshape(lead + (m * W * n,)).index_select(
-        -1, (mw * n + pos).reshape(-1)).reshape(lead + (m, W, nb - 1))
-    u_rows = p_excl.reshape(lead + (m * W * R,)).index_select(
-        -1, (mw * R + pos // SERIAL).reshape(-1)).reshape(lead + (m, W, nb - 1))
-    T = ops.padd(u_within, u_rows)
-    T = torch.where(cnt_k == 0, ops.inf((m, W, nb - 1), dev), T)
+    with trace.span("msm.buckets"):
+        mw = (torch.arange(m, device=dev)[:, None, None] * W
+              + torch.arange(W, device=dev)[None, :, None])
+        seg = (mw * nb + digits).reshape(-1)
+        with trace.sync(dev, waits=2):  # CUDA bincount reads its input's min and max
+            hist = torch.bincount(seg, minlength=m * W * nb).reshape(m, W, nb)
+        cnt = hist.flip(-1).cumsum(-1).flip(-1)  # cnt[d] = #{digit >= d}
+        cnt_k = cnt[..., 1:]                      # k = 1 .. nb-1
+        pos = (cnt_k - 1).clamp(min=0)
+        u_within = within.reshape(lead + (m * W * n,)).index_select(
+            -1, (mw * n + pos).reshape(-1)).reshape(lead + (m, W, nb - 1))
+        u_rows = p_excl.reshape(lead + (m * W * R,)).index_select(
+            -1, (mw * R + pos // SERIAL).reshape(-1)).reshape(lead + (m, W, nb - 1))
+        T = ops.padd(u_within, u_rows)
+        T = torch.where(cnt_k == 0, ops.inf((m, W, nb - 1), dev), T)
 
     # 4. S_w = sum_k T_k
-    T = torch.cat([T, ops.inf((m, W, 1), dev)], dim=-1)
-    return _fold_sum(T, ops)
+    with trace.span("msm.fold"):
+        T = torch.cat([T, ops.inf((m, W, 1), dev)], dim=-1)
+        return _fold_sum(T, ops)
 
 
 def _all_window_sums(points, scalars, ops, window_chunk: int, wbits: int, row_map=None):
@@ -136,13 +143,14 @@ def _all_window_sums(points, scalars, ops, window_chunk: int, wbits: int, row_ma
     m_pts = points.shape[ops.coord_dims + 1]
     nw = 256 // wbits
     lead = tuple(points.shape[: ops.coord_dims + 1])
-    if n % SERIAL:
-        pad = SERIAL - n % SERIAL
-        points = torch.cat([points, ops.inf((m_pts, pad), dev)], dim=-1)
-        scalars = torch.nn.functional.pad(scalars, (0, pad))
-        n += pad
-    points_flat = points.reshape(lead + (m_pts * n,))
-    digits = _digits(scalars, wbits)
+    with trace.span("msm.digits"):
+        if n % SERIAL:
+            pad = SERIAL - n % SERIAL
+            points = torch.cat([points, ops.inf((m_pts, pad), dev)], dim=-1)
+            scalars = torch.nn.functional.pad(scalars, (0, pad))
+            n += pad
+        points_flat = points.reshape(lead + (m_pts * n,))
+        digits = _digits(scalars, wbits)
     C = window_chunk or nw
     sums = [
         _window_sums(points_flat, digits[:, c : c + C].contiguous(), ops, 1 << wbits, row_map)
@@ -151,6 +159,7 @@ def _all_window_sums(points, scalars, ops, window_chunk: int, wbits: int, row_ma
     return torch.cat(sums, dim=-1)
 
 
+@trace.spanned("msm.horner")
 def _horner(S, ops, wbits: int):
     """Window sums [3,(2,),8,m,nw] -> [3,(2,),8,m]: acc = 2^wbits acc + S_w."""
     nw = S.shape[-1]

@@ -15,6 +15,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import trace
 from ..field.bn254 import FR, FR_GENERATOR, fr_inv, fr_nth_root
 
 from ..field.limbs import N_LIMBS, from_u16_limbs
@@ -59,7 +60,8 @@ def _coset_powers(n: int, inverse: bool) -> np.ndarray:
 
 
 def _dev(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(a).to(device)
+    with trace.sync(device, h2d=a.nbytes):  # a blocking copy from pageable memory
+        return torch.from_numpy(a).to(device)
 
 
 def ntt(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Union
 
+from .. import trace
 from .balance import BalanceParams, build_balance
 from .builder import ConstraintSystem
 from .secagg import (
@@ -107,4 +108,5 @@ def build_structure(params: CircuitParams) -> ConstraintSystem:
 
 def generate_witness(params: CircuitParams, inputs: dict) -> ConstraintSystem:
     """Fast value-only pass; returns a CS whose .witness is the assignment."""
-    return build_circuit(params, inputs, witness_only=True)
+    with trace.span("r1cs.witness"):
+        return build_circuit(params, inputs, witness_only=True)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+from .. import trace
 from ..field.bn254 import FR
 from ..poseidon.grain import R_F, partial_rounds, poseidon_params
 from .builder import ConstraintSystem, LinComb
@@ -54,6 +55,7 @@ def less_eq_than(cs: ConstraintSystem, a: LinComb, b: LinComb, n: int) -> LinCom
     return less_than(cs, a, b + 1, n)
 
 
+@trace.spanned("r1cs.poseidon")
 def poseidon_gadget(cs: ConstraintSystem, inputs: Sequence[LinComb]) -> LinComb:
     """In-circuit Poseidon hash of 1..16 LinCombs; returns the output LinComb.
 
@@ -61,6 +63,7 @@ def poseidon_gadget(cs: ConstraintSystem, inputs: Sequence[LinComb]) -> LinComb:
     MDS layers stay symbolic, matching circom's post-optimisation cost of
     ~150-250 constraints per hash (src/circuits/lib/poseidon.circom:26).
     """
+    trace.count("r1cs.poseidon")
     t = len(inputs) + 1
     C, M = poseidon_params(t)
     rp = partial_rounds(t)
