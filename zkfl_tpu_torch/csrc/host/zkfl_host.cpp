@@ -107,6 +107,25 @@ static inline void sbox5(Fr &x) {
   fr_mul(x, x4, x);
 }
 
+// The k-th element of an array of Montgomery-form limbs.
+static inline const Fr &at(const uint64_t *mont, int k) {
+  return *reinterpret_cast<const Fr *>(mont + 4 * k);
+}
+
+// s = mat s for a row-major t x t matrix (Montgomery form).
+static inline void mat_vec(Fr *s, const uint64_t *mat, int t) {
+  Fr tmp[17];
+  for (int i = 0; i < t; ++i) {
+    Fr acc = {{0, 0, 0, 0}}, prod;
+    for (int j = 0; j < t; ++j) {
+      fr_mul(prod, at(mat, i * t + j), s[j]);
+      fr_add(acc, acc, prod);
+    }
+    tmp[i] = acc;
+  }
+  std::memcpy(s, tmp, t * sizeof(Fr));
+}
+
 // One Poseidon permutation, state width t (2..17), Montgomery in/out.
 static void poseidon_permute(Fr *state, int t) {
   const uint64_t *Cc = POSEIDON_C[t];
@@ -114,33 +133,44 @@ static void poseidon_permute(Fr *state, int t) {
   const int rp = POSEIDON_RP[t];
   const int rf_half = POSEIDON_RF / 2;
   const int n_rounds = POSEIDON_RF + rp;
-  Fr tmp[17];
   int cidx = 0;
   for (int r = 0; r < n_rounds; ++r) {
-    for (int i = 0; i < t; ++i) {
-      Fr c;
-      std::memcpy(c.v, Cc + (cidx + i) * 4, 32);
-      fr_add(state[i], state[i], c);
-    }
+    for (int i = 0; i < t; ++i) fr_add(state[i], state[i], at(Cc, cidx + i));
     cidx += t;
     if (r < rf_half || r >= rf_half + rp) {
       for (int i = 0; i < t; ++i) sbox5(state[i]);
     } else {
       sbox5(state[0]);
     }
-    // MDS: tmp[i] = sum_j M[i][j] * state[j]
-    for (int i = 0; i < t; ++i) {
-      Fr acc = {{0, 0, 0, 0}};
-      for (int j = 0; j < t; ++j) {
-        Fr m, prod;
-        std::memcpy(m.v, Mm + (i * t + j) * 4, 32);
-        fr_mul(prod, m, state[j]);
-        fr_add(acc, acc, prod);
-      }
-      tmp[i] = acc;
-    }
-    std::memcpy(state, tmp, t * sizeof(Fr));
+    mat_vec(state, Mm, t);
   }
+}
+
+// Poseidon witness helpers: a field element from/to 4 std-form limbs and
+// the S-box with its three wires.
+static inline Fr load_mont(const uint64_t *limbs) {
+  Fr x, m;
+  std::memcpy(x.v, limbs, 32);
+  to_mont(m, x);
+  return m;
+}
+
+static inline void store_std(uint64_t *limbs, const Fr &x) {
+  Fr s;
+  from_mont(s, x);
+  std::memcpy(limbs, s.v, 32);
+}
+
+// x = x^5; writes x^2, x^4, x^5 to wires[0..11] and returns wires + 12.
+static inline uint64_t *sbox5_wires(Fr &x, uint64_t *wires) {
+  Fr x2, x4;
+  fr_sqr(x2, x);
+  fr_sqr(x4, x2);
+  fr_mul(x, x4, x);
+  store_std(wires, x2);
+  store_std(wires + 4, x4);
+  store_std(wires + 8, x);
+  return wires + 12;
 }
 
 extern "C" {
@@ -162,6 +192,55 @@ void poseidon_hash_batch(int arity, long n, const uint64_t *in, uint64_t *out) {
     from_mont(res, state[0]);
     std::memcpy(out + row * 4, res.v, 32);
   }
+}
+
+// One in-circuit Poseidon hash's witness (r1cs/gadgets.py poseidon_gadget):
+// the permutation of (0, in[0..arity-1]) for t = arity + 1, in the optimized
+// form of poseidon/optimized.py, from K5's constant buffers c and m
+// (OptimizedParams.kernel_buffers, Montgomery form).  Every S-box's x^2,
+// x^4, x^5 go to `wires` (std form) in the order the gadget allocates them:
+// rounds in order, lanes 0..t-1 in a full round, lane 0 in a partial one
+// (the optimized form's S-box inputs are the plain ones); the hash to `out`.
+void poseidon_witness(int arity, const uint64_t *c, const uint64_t *m,
+                      const uint64_t *in, uint64_t *wires, uint64_t *out) {
+  const int t = arity + 1, rp = POSEIDON_RP[t], h = POSEIDON_RF / 2;
+  const uint64_t *first = c + 4 * t, *ks = first + 4 * h * t;
+  const uint64_t *last = ks + 4 * rp, *pm = m + 4 * t * t;
+  const uint64_t *sparse = pm + 4 * t * t;
+  Fr s[17];
+  std::memset(s[0].v, 0, 32);
+  for (int i = 1; i < t; ++i) s[i] = load_mont(in + 4 * (i - 1));
+  for (int i = 0; i < t; ++i) fr_add(s[i], s[i], at(c, i));
+  for (int r = 0; r < h; ++r) {
+    for (int i = 0; i < t; ++i) {
+      wires = sbox5_wires(s[i], wires);
+      fr_add(s[i], s[i], at(first, r * t + i));
+    }
+    mat_vec(s, r == h - 1 ? pm : m, t);
+  }
+  for (int j = 0; j < rp; ++j) {
+    const uint64_t *row = sparse + 4 * j * (2 * t - 1), *col = row + 4 * t;
+    wires = sbox5_wires(s[0], wires);
+    fr_add(s[0], s[0], at(ks, j));
+    Fr s0 = {{0, 0, 0, 0}}, prod;
+    for (int i = 0; i < t; ++i) {
+      fr_mul(prod, at(row, i), s[i]);
+      fr_add(s0, s0, prod);
+    }
+    for (int i = 1; i < t; ++i) {
+      fr_mul(prod, at(col, i - 1), s[0]);
+      fr_add(s[i], s[i], prod);
+    }
+    s[0] = s0;
+  }
+  for (int r = 0; r < h; ++r) {
+    for (int i = 0; i < t; ++i) {
+      wires = sbox5_wires(s[i], wires);
+      if (r < h - 1) fr_add(s[i], s[i], at(last, r * t + i));
+    }
+    mat_vec(s, m, t);
+  }
+  store_std(out, s[0]);
 }
 
 // Chunked VectorHash (vector_hash.circom:46-89): dim <= 16 -> direct

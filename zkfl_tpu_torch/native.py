@@ -1,13 +1,15 @@
 """ctypes bridge to the native host libraries (csrc/host/).
 
 ``zkfl_host.cpp`` is the host-side fast path for Poseidon/VectorHash/Merkle
-(the role circomlibjs WASM plays for the reference); ``zkfl_pairing.cpp`` is
-the BN254 multi-pairing behind the Groth16 verifier.  Each is compiled with
-g++ at first use into ``build/zkfl_tpu_torch/host/<source hash>/`` beside
-the package: under a temporary name, then renamed, so that several processes
-may build at once.  Without g++ (or when the build fails) the callers fall
-back to the pure-Python oracles (zkfl_tpu_torch.poseidon.reference,
-zkfl_tpu_torch.field.pairing).
+(the role circomlibjs WASM plays for the reference) and for the Poseidon
+gadget's witness (``poseidon_witness``: every S-box wire of one in-circuit
+hash); ``zkfl_pairing.cpp`` is the BN254 multi-pairing behind the Groth16
+verifier.  Each is compiled with g++ at first use into
+``build/zkfl_tpu_torch/host/<source hash>/`` beside the package: under a
+temporary name, then renamed, so that several processes may build at once.
+Without g++ (or when the build fails) the callers fall back to the
+pure-Python oracles (zkfl_tpu_torch.poseidon.reference,
+zkfl_tpu_torch.field.pairing, the gadget's Python branch).
 """
 
 from __future__ import annotations
@@ -17,10 +19,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+from functools import lru_cache
+from itertools import repeat
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .field.bn254 import FR
+from .poseidon.grain import R_F, partial_rounds
+from .poseidon.optimized import optimized_params
 
 PKG_DIR = Path(__file__).resolve().parent
 HOST_SRC = PKG_DIR / "csrc" / "host"
@@ -73,6 +81,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.poseidon_hash_batch.argtypes = [ctypes.c_int, ctypes.c_long, u64p, u64p]
         lib.vector_hash_batch.argtypes = [ctypes.c_int, ctypes.c_long, u64p, u64p]
         lib.merkle_build.argtypes = [ctypes.c_long, u64p, u64p]
+        vp = ctypes.c_void_p
+        lib.poseidon_witness.argtypes = [ctypes.c_int, vp, vp, ctypes.c_char_p, vp, vp]
         _lib = lib
     except OSError:
         _lib = None
@@ -89,10 +99,10 @@ def _to_limbs(vals: Sequence[int]) -> np.ndarray:
 
 
 def _from_limbs(arr: np.ndarray) -> List[int]:
-    data = arr.reshape(-1, 4).tobytes()
-    return [
-        int.from_bytes(data[i : i + 32], "little") for i in range(0, len(data), 32)
-    ]
+    # numpy's S32 strings drop trailing NUL bytes: little-endian high zeros,
+    # so the value stays the same.
+    rows = np.ascontiguousarray(arr).reshape(-1, 4).view("S32").ravel().tolist()
+    return list(map(int.from_bytes, rows, repeat("little")))
 
 
 def _ptr(a: np.ndarray):
@@ -107,6 +117,32 @@ def poseidon_batch(rows: Sequence[Sequence[int]]) -> List[int]:
     out = np.empty((len(rows), 4), dtype=np.uint64)
     lib.poseidon_hash_batch(arity, len(rows), _ptr(flat), _ptr(out))
     return _from_limbs(out)
+
+
+@lru_cache(maxsize=32)
+def _witness_consts(t: int) -> Tuple[np.ndarray, np.ndarray]:
+    """K5's constant buffers c and m for width t
+    (``OptimizedParams.kernel_buffers``) as Montgomery-form limbs."""
+    return tuple(_to_limbs([(v << 256) % FR for v in buf])
+                 for buf in optimized_params(t).kernel_buffers())
+
+
+def poseidon_witness(inputs: Sequence[int]) -> Tuple[List[int], int]:
+    """One in-circuit Poseidon hash of 1..16 field elements: the S-box wires
+    in the gadget's order (x^2, x^4, x^5 of t S-boxes a full round and one a
+    partial round, t = len(inputs) + 1) and the hash."""
+    t = len(inputs) + 1
+    if not 2 <= t <= 17:
+        raise ValueError(f"Poseidon takes 1..16 inputs, got {len(inputs)}")
+    lib = get_lib()
+    c, m = _witness_consts(t)
+    x = b"".join([v.to_bytes(32, "little") for v in inputs])
+    n_wires = 3 * (R_F * t + partial_rounds(t))
+    buf = np.empty((n_wires + 1, 4), dtype=np.uint64)
+    addr = buf.ctypes.data
+    lib.poseidon_witness(len(inputs), c.ctypes.data, m.ctypes.data, x, addr, addr + 32 * n_wires)
+    wires = _from_limbs(buf)
+    return wires, wires.pop()
 
 
 def vector_hash_batch(rows: Sequence[Sequence[int]]) -> List[int]:
