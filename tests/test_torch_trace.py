@@ -168,7 +168,8 @@ def test_groth16_prove_traced_equals_untraced_and_nests():
     assert names.count("msm.horner") == 2  # one G1 and one G2 MSM
     assemble = names.index("groth16.assemble")
     muls = [s for s in spans if s.name == "groth16.scalar_mul"]
-    assert muls and all(s.parent == assemble for s in muls[:6])
+    assert muls and muls[0].parent == assemble
+    assert {names[s.parent] for s in muls} == {"groth16.assemble", "groth16.vk_x"}
     verify = names.index("groth16.verify")
     assert [s.name for s in spans if s.parent == verify] == ["groth16.vk_x", "groth16.pairing"]
     assert not counters["device.syncs"]  # nothing waits on the CPU

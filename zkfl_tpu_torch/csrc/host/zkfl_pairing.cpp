@@ -1,11 +1,14 @@
-// BN254 optimal-ate pairing — native host verifier hot path.
+// BN254 optimal-ate pairing and G1/G2 scalar multiplication — the native
+// host side of Groth16 proof assembly and verification.
 //
 // Replaces the pure-Python pairing (zkfl_tpu/field/pairing.py) for Groth16
 // verification: the reference verifies in ~8-9 ms/proof via snarkjs
 // (ref:Report.pdf Table 3; subprocess at
 // ref:tests/full_system_simulation.mjs:865-868), and the Python Miller loop
-// costs ~800 ms/proof — this library brings the 4-term pairing-product
-// check to single-digit milliseconds.
+// costs ~800 ms/proof.  The scalar multiplications replace the Python
+// double-and-add of groth16/prover.py (the blinding terms r delta, s delta,
+// s pi_A, r pi_B1, -rs delta, in constant time) and of
+// groth16/verifier.py (vk_x = IC_0 + sum s_i IC_i, public scalars).
 //
 // Layout: 4x64-bit Montgomery Fq; tower Fq2 = Fq[u]/(u^2+1),
 // Fq6 = Fq2[v]/(v^3 - (9+u)), Fq12 = Fq6[w]/(w^2 - v).  G2 inputs are
@@ -14,10 +17,11 @@
 // The boolean product==1 result is tower-isomorphism invariant, so this
 // agrees with the Python oracle's py_ecc-style FQ12 basis.
 //
-// Build: g++ -O2 -shared -fPIC -o ../zkfl_tpu/libzkfl_pairing.so zkfl_pairing.cpp
+// Built by zkfl_tpu_torch/native.py (g++ -O3 -shared -fPIC).
 
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 typedef __uint128_t u128;
 typedef uint64_t u64;
@@ -541,6 +545,174 @@ static void final_exp(Fq12 &r, const Fq12 &f) {
 }
 
 // ---------------------------------------------------------------------------
+// G1 (over Fq) and G2 (over Fq2, the twist) in Jacobian coordinates, a = 0
+// ---------------------------------------------------------------------------
+//
+// One template serves both groups through the overloads below.  The point
+// formulas are those of field/curve.py (dbl-2009-l, add-2007-bl); the
+// identity is Z = 0.  The addition is complete: the doubling case and an
+// identity operand are chosen by masks, not by branches, so that the
+// constant-time multiplication below runs the same instructions for every
+// scalar.  (The Fq operations themselves end in a conditional subtraction
+// that depends on the operand values, as in the pairing.)
+
+static inline void f_add(Fq &r, const Fq &a, const Fq &b) { fq_add(r, a, b); }
+static inline void f_add(Fq2 &r, const Fq2 &a, const Fq2 &b) { fq2_add(r, a, b); }
+static inline void f_sub(Fq &r, const Fq &a, const Fq &b) { fq_sub(r, a, b); }
+static inline void f_sub(Fq2 &r, const Fq2 &a, const Fq2 &b) { fq2_sub(r, a, b); }
+static inline void f_mul(Fq &r, const Fq &a, const Fq &b) { fq_mul(r, a, b); }
+static inline void f_mul(Fq2 &r, const Fq2 &a, const Fq2 &b) { fq2_mul(r, a, b); }
+static inline void f_inv(Fq &r, const Fq &a) { fq_inv(r, a); }
+static inline void f_inv(Fq2 &r, const Fq2 &a) { fq2_inv(r, a); }
+static inline void f_one(Fq &r) { r = FQ_ONE; }
+static inline void f_one(Fq2 &r) { r = FQ2_ONE; }
+static inline void f_zero(Fq &r) { r = FQ_ZERO; }
+static inline void f_zero(Fq2 &r) { r = FQ2_ZERO; }
+
+// All ones where a == b, else 0.
+static inline u64 eq_mask(u64 a, u64 b) {
+  u64 t = a ^ b;
+  return ((t | (0 - t)) >> 63) - 1;
+}
+// All ones where a == 0 (the values are fully reduced), else 0.
+static inline u64 zero_mask(const Fq &a) {
+  return eq_mask(a.l[0] | a.l[1] | a.l[2] | a.l[3], 0);
+}
+static inline u64 zero_mask(const Fq2 &a) {
+  return zero_mask(a.c0) & zero_mask(a.c1);
+}
+
+// r = a where mask is all ones, r unchanged where it is 0.
+static inline void cmov(Fq &r, const Fq &a, u64 mask) {
+  for (int i = 0; i < 4; ++i) r.l[i] ^= mask & (r.l[i] ^ a.l[i]);
+}
+static inline void cmov(Fq2 &r, const Fq2 &a, u64 mask) {
+  cmov(r.c0, a.c0, mask);
+  cmov(r.c1, a.c1, mask);
+}
+
+template <class F> struct Jac { F X, Y, Z; };
+
+template <class F> static inline void jac_cmov(Jac<F> &r, const Jac<F> &a, u64 mask) {
+  cmov(r.X, a.X, mask); cmov(r.Y, a.Y, mask); cmov(r.Z, a.Z, mask);
+}
+
+template <class F> static inline Jac<F> jac_identity() {
+  Jac<F> r;
+  f_one(r.X); f_one(r.Y); f_zero(r.Z);
+  return r;
+}
+
+// Group operations of this thread since the last bn254_group_op_counts:
+// doublings, additions, table entries read.  The tests compare them across
+// scalars of different weight.
+static thread_local u64 OPS[3];
+
+template <class F> static void jac_dbl(Jac<F> &r, const Jac<F> &p) {
+  ++OPS[0];
+  F A, B, C, D, E, t, x3, y3, z3;
+  f_mul(A, p.X, p.X);
+  f_mul(B, p.Y, p.Y);
+  f_mul(C, B, B);
+  f_add(t, p.X, B); f_mul(t, t, t); f_sub(t, t, A); f_sub(t, t, C);
+  f_add(D, t, t);                               // 2((X + B)^2 - A - C)
+  f_add(E, A, A); f_add(E, E, A);               // 3A
+  f_mul(x3, E, E); f_sub(x3, x3, D); f_sub(x3, x3, D);
+  f_sub(t, D, x3); f_mul(y3, E, t);
+  f_add(t, C, C); f_add(t, t, t); f_add(t, t, t);
+  f_sub(y3, y3, t);                             // E(D - X3) - 8C
+  f_mul(z3, p.Y, p.Z); f_add(z3, z3, z3);       // 2YZ: 0 for the identity
+  r.X = x3; r.Y = y3; r.Z = z3;
+}
+
+template <class F> static void jac_add(Jac<F> &r, const Jac<F> &p, const Jac<F> &q) {
+  ++OPS[1];
+  F z1z1, z2z2, u1, u2, s1, s2, h, i, j, rr, v, t;
+  Jac<F> s;
+  f_mul(z1z1, p.Z, p.Z);
+  f_mul(z2z2, q.Z, q.Z);
+  f_mul(u1, p.X, z2z2);
+  f_mul(u2, q.X, z1z1);
+  f_mul(t, q.Z, z2z2); f_mul(s1, p.Y, t);
+  f_mul(t, p.Z, z1z1); f_mul(s2, q.Y, t);
+  f_sub(h, u2, u1);
+  f_add(i, h, h); f_mul(i, i, i);               // 4H^2
+  f_mul(j, h, i);
+  f_sub(rr, s2, s1); f_add(rr, rr, rr);
+  f_mul(v, u1, i);
+  f_mul(s.X, rr, rr); f_sub(s.X, s.X, j); f_sub(s.X, s.X, v); f_sub(s.X, s.X, v);
+  f_sub(t, v, s.X); f_mul(s.Y, rr, t);
+  f_mul(t, s1, j); f_add(t, t, t); f_sub(s.Y, s.Y, t);
+  f_add(t, p.Z, q.Z); f_mul(t, t, t); f_sub(t, t, z1z1); f_sub(t, t, z2z2);
+  f_mul(s.Z, t, h);                             // p = -q: H = 0, the identity
+  Jac<F> d;
+  jac_dbl(d, p);
+  jac_cmov(s, d, zero_mask(h) & zero_mask(rr));  // p = q
+  jac_cmov(s, q, zero_mask(p.Z));
+  jac_cmov(s, p, zero_mask(q.Z));
+  r = s;
+}
+
+// k P for a secret k (4 limbs, k < 2^256): 64 fixed 4-bit windows from the
+// top, each four doublings and one addition of the table entry k's digit
+// picks, found by reading all 16 entries.  No branch and no address
+// depends on k.
+template <class F> static void ct_mul(Jac<F> &r, const Jac<F> &p, const u64 k[4]) {
+  Jac<F> table[16];
+  table[0] = jac_identity<F>();
+  table[1] = p;
+  for (int i = 2; i < 16; ++i) jac_add(table[i], table[i - 1], p);
+  Jac<F> acc = jac_identity<F>();
+  for (int w = 63; w >= 0; --w) {
+    for (int i = 0; i < 4; ++i) jac_dbl(acc, acc);
+    u64 digit = (k[w >> 4] >> ((w & 15) * 4)) & 15;
+    Jac<F> e = table[0];
+    for (u64 i = 1; i < 16; ++i) jac_cmov(e, table[i], eq_mask(i, digit));
+    OPS[2] += 16;
+    jac_add(acc, acc, e);
+  }
+  r = acc;
+}
+
+// Standard-form limbs in and out; the identity travels as a flag.
+static void load(Fq &r, const u64 *a) {
+  Fq x = {{a[0], a[1], a[2], a[3]}};
+  fq_to_mont(r, x);
+}
+static void load(Fq2 &r, const u64 *a) { load(r.c0, a); load(r.c1, a + 4); }
+static void store(u64 *out, const Fq &a) {
+  Fq one = {{1, 0, 0, 0}}, r;
+  fq_mul(r, a, one);
+  memcpy(out, r.l, sizeof r.l);
+}
+static void store(u64 *out, const Fq2 &a) { store(out, a.c0); store(out + 4, a.c1); }
+
+template <class F> static Jac<F> load_point(const u64 *xy, int inf) {
+  const int n = sizeof(F) / sizeof(u64);
+  Jac<F> r = jac_identity<F>();
+  if (!inf) { load(r.X, xy); load(r.Y, xy + n); f_one(r.Z); }
+  return r;
+}
+
+// The affine coordinates into out; 1 (out zeroed) for the identity, else 0.
+template <class F> static int store_point(u64 *out, const Jac<F> &p) {
+  const int n = sizeof(F) / sizeof(u64);
+  if (zero_mask(p.Z)) {
+    memset(out, 0, 2 * n * sizeof(u64));
+    return 1;
+  }
+  F zi, z2, z3, x, y;
+  f_inv(zi, p.Z);
+  f_mul(z2, zi, zi);
+  f_mul(z3, z2, zi);
+  f_mul(x, p.X, z2);
+  f_mul(y, p.Y, z3);
+  store(out, x);
+  store(out + n, y);
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
 // Entry point
 // ---------------------------------------------------------------------------
 
@@ -574,6 +746,106 @@ int bn254_pairing_check(long n, const u64 *g1, const u64 *g2) {
   Fq12 out;
   final_exp(out, f);
   return fq12_is_one(out) ? 1 : 0;
+}
+
+// k P in constant time for a secret scalar (the proof's blinding terms).
+// point: x, y (G1: 2 x 4 limbs; G2: x.c0, x.c1, y.c0, y.c1, 4 x 4 limbs),
+// standard form, read only when inf is 0; scalar: 4 limbs.  out: the
+// product's affine coordinates in the same layout; returns 1 when the
+// product is the identity (out zeroed), else 0.
+int bn254_g1_mul(const u64 *point, int inf, const u64 *scalar, u64 *out) {
+  Jac<Fq> r;
+  ct_mul(r, load_point<Fq>(point, inf), scalar);
+  return store_point(out, r);
+}
+
+int bn254_g2_mul(const u64 *point, int inf, const u64 *scalar, u64 *out) {
+  Jac<Fq2> r;
+  ct_mul(r, load_point<Fq2>(point, inf), scalar);
+  return store_point(out, r);
+}
+
+// One Groth16 proof from its MSM results (groth16/prover.py
+// _assemble_proof):
+//   pi_A  = alpha1 + A + r delta1
+//   pi_B  = beta2 + B2 + s delta2                          (G2)
+//   pi_B1 = beta1 + B1 + s delta1
+//   pi_C  = C + H + s pi_A + r pi_B1 + (-rs) delta1
+// every product by ct_mul.  g1: alpha1, beta1, delta1, A, B1, C, H and g2:
+// beta2, delta2, B2, laid out and flagged as in bn254_g1_mul / bn254_g2_mul;
+// scalars: r, s, -rs mod the group order, 4 limbs each.  out: pi_A (8
+// limbs), pi_B (16), pi_C (8); returns the identity flags of pi_A, pi_B,
+// pi_C as bits 0, 1, 2 (an identity's limbs zeroed).
+int bn254_groth16_assemble(const u64 *g1, const uint8_t *g1_inf, const u64 *g2,
+                           const uint8_t *g2_inf, const u64 *scalars, u64 *out) {
+  Jac<Fq> p[7];
+  for (int i = 0; i < 7; ++i) p[i] = load_point<Fq>(g1 + 8 * i, g1_inf[i]);
+  Jac<Fq2> q[3];
+  for (int i = 0; i < 3; ++i) q[i] = load_point<Fq2>(g2 + 16 * i, g2_inf[i]);
+  const u64 *r = scalars, *s = scalars + 4, *rs = scalars + 8;
+  const Jac<Fq> &alpha1 = p[0], &beta1 = p[1], &delta1 = p[2];
+  Jac<Fq> pi_a, pi_b1, pi_c, t;
+  Jac<Fq2> pi_b, t2;
+  jac_add(pi_a, alpha1, p[3]);
+  ct_mul(t, delta1, r);
+  jac_add(pi_a, pi_a, t);
+  jac_add(pi_b, q[0], q[2]);
+  ct_mul(t2, q[1], s);
+  jac_add(pi_b, pi_b, t2);
+  jac_add(pi_b1, beta1, p[4]);
+  ct_mul(t, delta1, s);
+  jac_add(pi_b1, pi_b1, t);
+  jac_add(pi_c, p[5], p[6]);
+  ct_mul(t, pi_a, s);
+  jac_add(pi_c, pi_c, t);
+  ct_mul(t, pi_b1, r);
+  jac_add(pi_c, pi_c, t);
+  ct_mul(t, delta1, rs);
+  jac_add(pi_c, pi_c, t);
+  return store_point(out, pi_a) | store_point(out + 8, pi_b) << 1 |
+         store_point(out + 24, pi_c) << 2;
+}
+
+// IC_0 + sum_{i=1..n} s_i IC_i over G1 for public scalars (vk_x): Straus,
+// the 4-bit windows' doublings shared by all terms, zero digits skipped, each
+// term's table built only as far as its largest digit.  points: n + 1
+// affine points as in bn254_g1_mul, inf their n + 1 identity flags; scalars:
+// n x 4 limbs.  out and the result as in bn254_g1_mul.
+int bn254_g1_lincomb(long n, const u64 *points, const uint8_t *inf,
+                     const u64 *scalars, u64 *out) {
+  auto digit = [scalars](long i, int w) {
+    return (scalars[4 * i + (w >> 4)] >> ((w & 15) * 4)) & 15;
+  };
+  std::vector<Jac<Fq>> table(16 * n);
+  for (long i = 0; i < n; ++i) {
+    u64 top = 0;
+    for (int w = 0; w < 64; ++w) top = digit(i, w) > top ? digit(i, w) : top;
+    Jac<Fq> *t = &table[16 * i];
+    t[1] = load_point<Fq>(points + 8 * (i + 1), inf[i + 1]);
+    for (u64 d = 2; d <= top; ++d) jac_add(t[d], t[d - 1], t[1]);
+  }
+  Jac<Fq> acc = jac_identity<Fq>();
+  bool started = false;
+  for (int w = 63; w >= 0; --w) {
+    if (started)
+      for (int j = 0; j < 4; ++j) jac_dbl(acc, acc);
+    for (long i = 0; i < n; ++i) {
+      u64 d = digit(i, w);
+      if (d) {
+        jac_add(acc, acc, table[16 * i + d]);
+        started = true;
+      }
+    }
+  }
+  jac_add(acc, acc, load_point<Fq>(points, inf[0]));
+  return store_point(out, acc);
+}
+
+// This thread's doublings, additions and table entries read since the last
+// call, into out[0..2]; the counts restart at 0.
+void bn254_group_op_counts(u64 *out) {
+  memcpy(out, OPS, sizeof OPS);
+  memset(OPS, 0, sizeof OPS);
 }
 
 // --- debug/test exports (used by tests/test_native.py) --------------------

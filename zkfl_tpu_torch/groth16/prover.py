@@ -21,7 +21,7 @@ import secrets
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
-from .. import trace
+from .. import native, trace
 from ..field.bn254 import FR
 from ..field.curve import (
     G2_JAC_INF,
@@ -115,6 +115,18 @@ def msm_g2(points, scalars, window: int = 0):
 
 @trace.spanned("groth16.scalar_mul")
 def mul_g2(p, k: int):
+    """k p over G2, affine in and out (None = the identity): in csrc/host,
+    constant time in k, or by ``mul_g2_plain`` without the library."""
+    trace.count("groth16.scalar_mul")
+    jac = native.g2_mul_native(p, k)
+    if jac is None:
+        return mul_g2_plain(p, k)
+    trace.count("groth16.scalar_mul_native")
+    return None if jac[2].is_zero() else jac[:2]
+
+
+def mul_g2_plain(p, k: int):
+    """Double-and-add over G2 in Python: the reference ``mul_g2`` is held to."""
     k %= FR
     if p is None or k == 0:
         return None
@@ -152,8 +164,17 @@ def default_blinding(witness: Sequence[int]) -> Tuple[int, int]:
 def _assemble_proof(pk: ProvingKey, witness: Sequence[int], msms: dict,
                     r: int, s: int) -> Proof:
     """Shared proof assembly from the five MSM results (host affine points,
-    None = identity): msms keys a, b1, c, h (G1) and b2 (G2)."""
+    None = identity): msms keys a, b1, c, h (G1) and b2 (G2).  One call
+    into csrc/host (its six products constant time in r and s), or the
+    same sums in Python without the library."""
     n_pub = pk.n_pub
+    public_signals = [x % FR for x in witness[1 : n_pub + 1]]
+    if native.pairing_available():
+        with trace.span("groth16.scalar_mul"):
+            pi_a, pi_b, pi_c = native.groth16_assemble_native(pk, msms, r, s)
+        trace.count("groth16.scalar_mul", 6)
+        trace.count("groth16.scalar_mul_native", 6)
+        return Proof(pi_a=pi_a, pi_b=pi_b, pi_c=pi_c, public_signals=public_signals)
 
     pi_a_j = g1_to_jacobian(pk.alpha1)
     if msms["a"] is not None:
@@ -184,10 +205,7 @@ def _assemble_proof(pk: ProvingKey, witness: Sequence[int], msms: dict,
     pi_c_j = g1_add_jac(pi_c_j, mul_g1(pk.delta1, (-r * s) % FR))
     pi_c = g1_from_jacobian(pi_c_j)
 
-    return Proof(
-        pi_a=pi_a, pi_b=pi_b, pi_c=pi_c,
-        public_signals=[x % FR for x in witness[1 : n_pub + 1]],
-    )
+    return Proof(pi_a=pi_a, pi_b=pi_b, pi_c=pi_c, public_signals=public_signals)
 
 
 @trace.spanned("groth16.prove")
@@ -297,7 +315,20 @@ def groth16_prove_many(
 
 @trace.spanned("groth16.scalar_mul")
 def mul_g1(p, k: int):
-    """Scalar mul returning Jacobian (internal helper)."""
+    """k p over G1 for an affine p (None = the identity), returned as a
+    Jacobian triple: (x, y, 1) from csrc/host, constant time in k, or
+    ``mul_g1_plain``'s triple without the library; (1, 1, 0) for the
+    identity either way."""
+    trace.count("groth16.scalar_mul")
+    jac = native.g1_mul_native(p, k)
+    if jac is None:
+        return mul_g1_plain(p, k)
+    trace.count("groth16.scalar_mul_native")
+    return jac
+
+
+def mul_g1_plain(p, k: int):
+    """Double-and-add over G1 in Python: the reference ``mul_g1`` is held to."""
     k %= FR
     acc = (1, 1, 0)
     if p is None or k == 0:

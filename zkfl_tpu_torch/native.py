@@ -4,12 +4,14 @@
 (the role circomlibjs WASM plays for the reference) and for the Poseidon
 gadget's witness (``poseidon_witness``: every S-box wire of one in-circuit
 hash); ``zkfl_pairing.cpp`` is the BN254 multi-pairing behind the Groth16
-verifier.  Each is compiled with g++ at first use into
+verifier and the G1/G2 scalar multiplications of proof assembly and of the
+verifier's vk_x.  Each is compiled with g++ at first use into
 ``build/zkfl_tpu_torch/host/<source hash>/`` beside the package: under a
 temporary name, then renamed, so that several processes may build at once.
 Without g++ (or when the build fails) the callers fall back to the
 pure-Python oracles (zkfl_tpu_torch.poseidon.reference,
-zkfl_tpu_torch.field.pairing, the gadget's Python branch).
+zkfl_tpu_torch.field.pairing, the gadget's Python branch, the prover's
+double-and-add).
 """
 
 from __future__ import annotations
@@ -173,7 +175,7 @@ def merkle_levels(leaves: Sequence[int]) -> List[List[int]]:
 
 
 # ---------------------------------------------------------------------------
-# BN254 pairing library (csrc/host/zkfl_pairing.cpp) — fast Groth16 verification
+# BN254 pairing library (csrc/host/zkfl_pairing.cpp) — Groth16 verification
 # ---------------------------------------------------------------------------
 
 _pairing_lib = None
@@ -193,6 +195,16 @@ def get_pairing_lib() -> Optional[ctypes.CDLL]:
         u64p = ctypes.POINTER(ctypes.c_uint64)
         lib.bn254_pairing_check.argtypes = [ctypes.c_long, u64p, u64p]
         lib.bn254_pairing_check.restype = ctypes.c_int
+        buf, out = ctypes.c_char_p, ctypes.c_void_p
+        for name in ("bn254_g1_mul", "bn254_g2_mul"):
+            getattr(lib, name).argtypes = [buf, ctypes.c_int, buf, out]
+            getattr(lib, name).restype = ctypes.c_int
+        lib.bn254_groth16_assemble.argtypes = [buf, buf, buf, buf, buf, out]
+        lib.bn254_groth16_assemble.restype = ctypes.c_int
+        lib.bn254_g1_lincomb.argtypes = [ctypes.c_long, buf, buf, buf, out]
+        lib.bn254_g1_lincomb.restype = ctypes.c_int
+        lib.bn254_group_op_counts.argtypes = [out]
+        lib.bn254_group_op_counts.restype = None
         _pairing_lib = lib
     except OSError:
         _pairing_lib = None
@@ -233,3 +245,115 @@ def pairing_check_native(pairs) -> Optional[bool]:
     if rc < 0:
         return None
     return bool(rc)
+
+
+# -- G1/G2 scalar multiplication (the same library) ---------------------------
+#
+# Points cross as affine standard-form coordinates, 32 little-endian bytes
+# each (G2: x.c0, x.c1, y.c0, y.c1, as bn254_pairing_check reads them), the
+# identity as a flag.  Each function returns None without the library, else
+# the product as a Jacobian triple with Z = 1, or the identity (1, 1, 0)
+# (G2: over FQ2), as groth16/prover.py's ``mul_g1`` returns it.
+
+_G1_INF = (1, 1, 0)
+
+
+def _bytes(vals) -> bytes:
+    return b"".join([v.to_bytes(32, "little") for v in vals])
+
+
+def _g1_coords(p) -> bytes:
+    return _bytes((0, 0) if p is None else p)
+
+
+def _g2_coords(p) -> bytes:
+    if p is None:
+        return bytes(128)
+    x, y = (c.coeffs if hasattr(c, "coeffs") else c for c in p)
+    return _bytes((*x, *y))
+
+
+def _fq2_class(p):
+    """The FQ2 class of p's coordinates, so that results compare equal to
+    points made by the same code as p (the port's FQ2 otherwise)."""
+    from .field.tower import FQ2
+
+    return type(p[0]) if p is not None and hasattr(p[0], "coeffs") else FQ2
+
+
+def _ints(raw: bytes) -> List[int]:
+    return [int.from_bytes(raw[i : i + 32], "little") for i in range(0, len(raw), 32)]
+
+
+def g1_mul_native(p, k: int):
+    """k p over G1 in constant time in k (p affine, None = the identity)."""
+    lib = get_pairing_lib()
+    if lib is None:
+        return None
+    out = ctypes.create_string_buffer(64)
+    if lib.bn254_g1_mul(_g1_coords(p), p is None, _bytes((k % FR,)), out):
+        return _G1_INF
+    return (*_ints(out.raw), 1)
+
+
+def g2_mul_native(p, k: int):
+    """k p over G2 in constant time in k (p affine over FQ2, None = the
+    identity); the coordinates in p's own FQ2 class."""
+    from .field.curve import G2_JAC_INF
+
+    lib = get_pairing_lib()
+    if lib is None:
+        return None
+    out = ctypes.create_string_buffer(128)
+    if lib.bn254_g2_mul(_g2_coords(p), p is None, _bytes((k % FR,)), out):
+        return G2_JAC_INF
+    fq2 = _fq2_class(p)
+    x0, x1, y0, y1 = _ints(out.raw)
+    return fq2([x0, x1]), fq2([y0, y1]), fq2.one()
+
+
+def groth16_assemble_native(pk, msms: dict, r: int, s: int):
+    """(pi_A, pi_B, pi_C) of one Groth16 proof (affine, None = the identity)
+    from ``pk``'s alpha1, beta1, delta1, beta2, delta2, the five MSM results
+    ``msms`` (a, b1, c, h over G1, b2 over G2) and the blinding r, s, in one
+    call, every product constant time in r and s; None without the
+    library."""
+    lib = get_pairing_lib()
+    if lib is None:
+        return None
+    g1 = [pk.alpha1, pk.beta1, pk.delta1, msms["a"], msms["b1"], msms["c"], msms["h"]]
+    g2 = [pk.beta2, pk.delta2, msms["b2"]]
+    out = ctypes.create_string_buffer(256)
+    inf = lib.bn254_groth16_assemble(
+        b"".join(map(_g1_coords, g1)), bytes(p is None for p in g1),
+        b"".join(map(_g2_coords, g2)), bytes(p is None for p in g2),
+        _bytes((r % FR, s % FR, -r * s % FR)), out)
+    v = _ints(out.raw)
+    fq2 = _fq2_class(pk.beta2)
+    return (None if inf & 1 else (v[0], v[1]),
+            None if inf & 2 else (fq2(v[2:4]), fq2(v[4:6])),
+            None if inf & 4 else (v[6], v[7]))
+
+
+def g1_lincomb_native(points: Sequence, scalars: Sequence[int]):
+    """points[0] + sum_i scalars[i] points[i + 1] over G1, for public
+    scalars (the verifier's vk_x; not constant time)."""
+    if len(points) != len(scalars) + 1:
+        raise ValueError(f"{len(points)} points for {len(scalars)} scalars")
+    lib = get_pairing_lib()
+    if lib is None:
+        return None
+    out = ctypes.create_string_buffer(64)
+    flags = bytes(p is None for p in points)
+    coords = b"".join(map(_g1_coords, points))
+    if lib.bn254_g1_lincomb(len(scalars), coords, flags, _bytes(s % FR for s in scalars), out):
+        return _G1_INF
+    return (*_ints(out.raw), 1)
+
+
+def group_op_counts() -> Tuple[int, int, int]:
+    """This thread's doublings, additions and table entries read by the
+    library's G1/G2 code since the last call (the counts restart)."""
+    out = (ctypes.c_uint64 * 3)()
+    get_pairing_lib().bn254_group_op_counts(out)
+    return tuple(out)
