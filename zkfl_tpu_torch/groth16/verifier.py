@@ -58,9 +58,12 @@ def groth16_verify(vk: VerifyingKey, proof: Proof, public_signals: Sequence[int]
     # Native C++ multi-pairing (csrc/host/zkfl_pairing.cpp; the reference
     # verifies in 8-9 ms via snarkjs, ref:Report.pdf Table 3); falls back to
     # the Python oracle when the library is unavailable or an input is
-    # degenerate.
+    # degenerate.  groth16.pairing_native counts the checks the library
+    # decided.
+    trace.count("groth16.pairing")
     with trace.span("groth16.pairing"):
         ok = native.pairing_check_native(pairs)
         if ok is not None:
+            trace.count("groth16.pairing_native")
             return ok
         return pairing_check(pairs)

@@ -205,6 +205,11 @@ def get_pairing_lib() -> Optional[ctypes.CDLL]:
         lib.bn254_g1_lincomb.restype = ctypes.c_int
         lib.bn254_group_op_counts.argtypes = [out]
         lib.bn254_group_op_counts.restype = None
+        lib.bn254_miller.argtypes = [ctypes.c_long, buf, buf, out]
+        lib.bn254_miller.restype = ctypes.c_int
+        for name in ("bn254_final_exp", "bn254_final_exp_plain"):
+            getattr(lib, name).argtypes = [buf, out]
+            getattr(lib, name).restype = None
         _pairing_lib = lib
     except OSError:
         _pairing_lib = None
@@ -216,9 +221,10 @@ def pairing_available() -> bool:
 
 
 def pairing_check_native(pairs) -> Optional[bool]:
-    """Native 4-limb pairing-product check: True/False, or None when the
-    library is unavailable or an input is degenerate (caller falls back to
-    the Python oracle, zkfl_tpu_torch.field.pairing).
+    """Native 4-limb pairing-product check: True/False (False for a point
+    off its curve), or None when the library is unavailable or the native
+    loop meets a degenerate step (caller falls back to the Python oracle,
+    zkfl_tpu_torch.field.pairing).
 
     pairs: [(P, Q)] with P an affine int pair (or None = identity) and Q an
     affine G2 pair of FQ2 coords (or None)."""
