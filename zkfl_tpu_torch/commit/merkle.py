@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
-from .. import trace
+from .. import native, trace
 from ..poseidon.reference import poseidon
 
 
@@ -27,18 +27,8 @@ class MerkleTree:
             raise ValueError(f"{len(leaf_hashes)} leaves exceed 2^{depth}")
         zero = poseidon([0])
         leaves = list(leaf_hashes) + [zero] * (padded - len(leaf_hashes))
-        from .. import native
-
-        if native.available() and padded > 1:
-            levels = native.merkle_levels(leaves)
-        else:
-            levels: List[List[int]] = [leaves]
-            cur = leaves
-            while len(cur) > 1:
-                cur = [poseidon([cur[i], cur[i + 1]]) for i in range(0, len(cur), 2)]
-                levels.append(cur)
         self.depth = depth
-        self.levels = levels
+        self.levels: List[List[int]] = native.merkle_levels(leaves) if depth else [leaves]
 
     @property
     def root(self) -> int:

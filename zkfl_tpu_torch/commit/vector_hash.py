@@ -21,32 +21,22 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
-from .. import trace
+from .. import native, trace
 from ..field.bn254 import FR
-from ..poseidon.reference import poseidon as _poseidon_py
 
 CHUNK_SIZE = 16
 
 
 def poseidon(inputs: Sequence[int]) -> int:
-    """Poseidon hash; native C++ batch kernel when built, Python fallback."""
-    from .. import native
-
-    if native.available():
-        return native.poseidon_batch([[v % FR for v in inputs]])[0]
-    return _poseidon_py(inputs)
+    """Poseidon hash of 1..16 field elements (csrc/host)."""
+    return native.poseidon_batch([[v % FR for v in inputs]])[0]
 
 
 def vector_hash_many(rows: Sequence[Sequence[int]]) -> List[int]:
-    """Batched VectorHash of equal-dim rows (native path when available) —
-    the host-side hot loop of dataset commitment (one call for all N
-    samples instead of N WASM invocations in the reference)."""
-    from .. import native
-
-    rows = [[v % FR for v in row] for row in rows]
-    if native.available():
-        return native.vector_hash_batch(rows)
-    return [vector_hash(row) for row in rows]
+    """Batched VectorHash of equal-dim rows (csrc/host) — the host-side
+    hot loop of dataset commitment (one call for all N samples instead of
+    N WASM invocations in the reference)."""
+    return native.vector_hash_batch([[v % FR for v in row] for row in rows])
 
 
 def vector_hash(values: Sequence[int]) -> int:

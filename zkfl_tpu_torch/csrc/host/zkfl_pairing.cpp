@@ -31,9 +31,9 @@
 // result has Z = 0 (where the affine loop meets yR = 0 or xR = xQ) makes it
 // return -1, and the caller asks the Python oracle.  The boolean
 // product==1 result is tower-isomorphism invariant, so this agrees with the
-// Python oracle's py_ecc-style FQ12 basis.  The pairing runs on additions
-// of its own (namespace pairing) and fq_mul; the constant-time ladder keeps
-// the global functions.
+// Python oracle's py_ecc-style FQ12 basis.  The pairing and the
+// constant-time ladder run on the same Fq operations, none of which
+// branches on the values.
 //
 // Built by zkfl_tpu_torch/native.py (g++ -O3 -shared -fPIC).
 
@@ -61,56 +61,68 @@ static const u64 R2[4] = {0xf32cfc5b538afa89ULL, 0xb5e71911d44501fbULL,
 
 struct Fq { u64 l[4]; };
 
-static inline bool geq(const u64 a[4], const u64 b[4]) {
-  for (int i = 3; i >= 0; --i) {
-    if (a[i] != b[i]) return a[i] > b[i];
-  }
-  return true;
+static const Fq FQ_ZERO = {{0, 0, 0, 0}};
+
+// The Fq operations run the same instructions for every value: a reduction
+// subtracts p and keeps the difference or the operand by a mask, never by
+// a branch, so that the constant-time ladder below is constant time in its
+// field operations too.  The values are fully reduced (< p).
+
+// One word of a carry chain: a + b + c, the carry out (0 or 1) in c.
+static inline u64 adc(u64 a, u64 b, unsigned char &c) {
+#if defined(__x86_64__)
+  unsigned long long s;
+  c = _addcarry_u64(c, a, b, &s);
+  return s;
+#else
+  u128 s = (u128)a + b + c;
+  c = (unsigned char)(s >> 64);
+  return (u64)s;
+#endif
 }
 
-static inline void sub_nocarry(u64 r[4], const u64 a[4], const u64 b[4]) {
-  u128 borrow = 0;
-  for (int i = 0; i < 4; ++i) {
-    u128 d = (u128)a[i] - b[i] - borrow;
-    r[i] = (u64)d;
-    borrow = (d >> 64) ? 1 : 0;
-  }
+// One word of a borrow chain: a - b - bw, the borrow out (0 or 1) in bw.
+static inline u64 sbb(u64 a, u64 b, unsigned char &bw) {
+#if defined(__x86_64__)
+  unsigned long long d;
+  bw = _subborrow_u64(bw, a, b, &d);
+  return d;
+#else
+  u128 d = (u128)a - b - bw;
+  bw = (unsigned char)(d >> 127);
+  return (u64)d;
+#endif
+}
+
+// r = t - p where t >= p, else t, for t = hi 2^256 + (t3 t2 t1 t0) < 2p.
+// Scalar locals, not arrays: they stay in registers.
+static inline void reduce_once(Fq &r, u64 t0, u64 t1, u64 t2, u64 t3, u64 hi) {
+  unsigned char bw = 0;
+  const u64 d0 = sbb(t0, P[0], bw), d1 = sbb(t1, P[1], bw);
+  const u64 d2 = sbb(t2, P[2], bw), d3 = sbb(t3, P[3], bw);
+  sbb(hi, 0, bw);
+  const u64 keep = 0 - (u64)bw;  // t < p: t itself
+  r.l[0] = (t0 & keep) | (d0 & ~keep); r.l[1] = (t1 & keep) | (d1 & ~keep);
+  r.l[2] = (t2 & keep) | (d2 & ~keep); r.l[3] = (t3 & keep) | (d3 & ~keep);
 }
 
 static inline void fq_add(Fq &r, const Fq &a, const Fq &b) {
-  u128 carry = 0;
-  for (int i = 0; i < 4; ++i) {
-    u128 s = (u128)a.l[i] + b.l[i] + carry;
-    r.l[i] = (u64)s;
-    carry = s >> 64;
-  }
-  if (carry || geq(r.l, P)) sub_nocarry(r.l, r.l, P);
+  unsigned char c = 0;
+  const u64 s0 = adc(a.l[0], b.l[0], c), s1 = adc(a.l[1], b.l[1], c);
+  const u64 s2 = adc(a.l[2], b.l[2], c), s3 = adc(a.l[3], b.l[3], c);
+  reduce_once(r, s0, s1, s2, s3, c);
 }
 
 static inline void fq_sub(Fq &r, const Fq &a, const Fq &b) {
-  u128 borrow = 0;
-  u64 t[4];
-  for (int i = 0; i < 4; ++i) {
-    u128 d = (u128)a.l[i] - b.l[i] - borrow;
-    t[i] = (u64)d;
-    borrow = (d >> 64) ? 1 : 0;
-  }
-  if (borrow) {
-    u128 carry = 0;
-    for (int i = 0; i < 4; ++i) {
-      u128 s = (u128)t[i] + P[i] + carry;
-      t[i] = (u64)s;
-      carry = s >> 64;
-    }
-  }
-  memcpy(r.l, t, sizeof t);
+  unsigned char bw = 0, c = 0;
+  const u64 d0 = sbb(a.l[0], b.l[0], bw), d1 = sbb(a.l[1], b.l[1], bw);
+  const u64 d2 = sbb(a.l[2], b.l[2], bw), d3 = sbb(a.l[3], b.l[3], bw);
+  const u64 m = 0 - (u64)bw;  // a < b: add p back
+  r.l[0] = adc(d0, P[0] & m, c); r.l[1] = adc(d1, P[1] & m, c);
+  r.l[2] = adc(d2, P[2] & m, c); r.l[3] = adc(d3, P[3] & m, c);
 }
 
-static inline void fq_neg(Fq &r, const Fq &a) {
-  bool zero = !(a.l[0] | a.l[1] | a.l[2] | a.l[3]);
-  if (zero) { memset(r.l, 0, sizeof r.l); return; }
-  sub_nocarry(r.l, P, a.l);
-}
+static inline void fq_neg(Fq &r, const Fq &a) { fq_sub(r, FQ_ZERO, a); }
 
 // CIOS Montgomery multiplication.
 static inline void fq_mul(Fq &out, const Fq &a, const Fq &b) {
@@ -137,13 +149,11 @@ static inline void fq_mul(Fq &out, const Fq &a, const Fq &b) {
     t[3] = (u64)s;
     t[4] = t[5] + (u64)(s >> 64);
   }
-  if (t[4] || geq(t, P)) sub_nocarry(out.l, t, P);
-  else memcpy(out.l, t, 4 * sizeof(u64));
+  reduce_once(out, t[0], t[1], t[2], t[3], t[4]);
 }
 
 static inline void fq_sqr(Fq &r, const Fq &a) { fq_mul(r, a, a); }
 
-static const Fq FQ_ZERO = {{0, 0, 0, 0}};
 static const Fq FQ_ONE = {{R1[0], R1[1], R1[2], R1[3]}};
 
 static inline bool fq_is_zero(const Fq &a) {
@@ -234,57 +244,11 @@ static inline bool fq2_eq(const Fq2 &a, const Fq2 &b) {
 // The pairing's arithmetic
 // ---------------------------------------------------------------------------
 //
-// The pairing's code is in namespace pairing, on its own Fq and Fq2
-// arithmetic: add, sub, neg, mul, sqr, half.  On x86-64 the additions are
-// branch-free ADC/SBB chains; off x86-64 they are fq_add and fq_sub.  The
-// product is fq_mul.  The results are the same field elements.  The
-// constant-time ladder below keeps fq_add, fq_sub, fq_mul and the fq2_
-// helpers, so nothing it runs changes with the pairing.
+// The pairing's code is in namespace pairing: its Fq2, Fq6 and Fq12
+// arithmetic (add, sub, neg, mul, sqr, half, ...) over the Fq operations
+// above, which the constant-time ladder below runs too.
 
 namespace pairing {
-
-#if defined(__x86_64__)
-
-// Scalar locals, not arrays: they stay in registers.
-static inline void add(Fq &r, const Fq &a, const Fq &b) {
-  unsigned long long s0, s1, s2, s3, d0, d1, d2, d3;
-  unsigned char c = _addcarry_u64(0, a.l[0], b.l[0], &s0);
-  c = _addcarry_u64(c, a.l[1], b.l[1], &s1);
-  c = _addcarry_u64(c, a.l[2], b.l[2], &s2);
-  _addcarry_u64(c, a.l[3], b.l[3], &s3);  // a + b < 2p < 2^255
-  unsigned char bw = _subborrow_u64(0, s0, P[0], &d0);
-  bw = _subborrow_u64(bw, s1, P[1], &d1);
-  bw = _subborrow_u64(bw, s2, P[2], &d2);
-  bw = _subborrow_u64(bw, s3, P[3], &d3);
-  r.l[0] = bw ? s0 : d0; r.l[1] = bw ? s1 : d1;
-  r.l[2] = bw ? s2 : d2; r.l[3] = bw ? s3 : d3;
-}
-
-static inline void sub(Fq &r, const Fq &a, const Fq &b) {
-  unsigned long long d0, d1, d2, d3;
-  unsigned char bw = _subborrow_u64(0, a.l[0], b.l[0], &d0);
-  bw = _subborrow_u64(bw, a.l[1], b.l[1], &d1);
-  bw = _subborrow_u64(bw, a.l[2], b.l[2], &d2);
-  bw = _subborrow_u64(bw, a.l[3], b.l[3], &d3);
-  const u64 m = 0 - (u64)bw;  // add p back where a < b
-  unsigned char c = _addcarry_u64(0, d0, P[0] & m, &d0);
-  c = _addcarry_u64(c, d1, P[1] & m, &d1);
-  c = _addcarry_u64(c, d2, P[2] & m, &d2);
-  _addcarry_u64(c, d3, P[3] & m, &d3);
-  r.l[0] = d0; r.l[1] = d1; r.l[2] = d2; r.l[3] = d3;
-}
-
-#else
-
-static inline void add(Fq &r, const Fq &a, const Fq &b) { ::fq_add(r, a, b); }
-static inline void sub(Fq &r, const Fq &a, const Fq &b) { ::fq_sub(r, a, b); }
-
-#endif
-
-static inline void mul(Fq &r, const Fq &a, const Fq &b) { ::fq_mul(r, a, b); }
-
-static inline void neg(Fq &r, const Fq &a) { sub(r, FQ_ZERO, a); }
-static inline void sqr(Fq &r, const Fq &a) { mul(r, a, a); }
 
 // a / 2: the Montgomery form is linear, so halve the representative mod p.
 static inline void half(Fq &r, const Fq &a) {
@@ -303,41 +267,41 @@ static inline void half(Fq &r, const Fq &a) {
 }
 
 static inline void add(Fq2 &r, const Fq2 &a, const Fq2 &b) {
-  add(r.c0, a.c0, b.c0); add(r.c1, a.c1, b.c1);
+  fq_add(r.c0, a.c0, b.c0); fq_add(r.c1, a.c1, b.c1);
 }
 static inline void sub(Fq2 &r, const Fq2 &a, const Fq2 &b) {
-  sub(r.c0, a.c0, b.c0); sub(r.c1, a.c1, b.c1);
+  fq_sub(r.c0, a.c0, b.c0); fq_sub(r.c1, a.c1, b.c1);
 }
 static inline void neg(Fq2 &r, const Fq2 &a) {
-  neg(r.c0, a.c0); neg(r.c1, a.c1);
+  fq_neg(r.c0, a.c0); fq_neg(r.c1, a.c1);
 }
 static inline void conj(Fq2 &r, const Fq2 &a) {
-  r.c0 = a.c0; neg(r.c1, a.c1);
+  r.c0 = a.c0; fq_neg(r.c1, a.c1);
 }
 
 // Karatsuba: 3 Fq products.
 static inline void mul(Fq2 &r, const Fq2 &a, const Fq2 &b) {
   Fq t0, t1, s0, s1, m;
-  mul(t0, a.c0, b.c0);
-  mul(t1, a.c1, b.c1);
-  add(s0, a.c0, a.c1);
-  add(s1, b.c0, b.c1);
-  mul(m, s0, s1);
+  fq_mul(t0, a.c0, b.c0);
+  fq_mul(t1, a.c1, b.c1);
+  fq_add(s0, a.c0, a.c1);
+  fq_add(s1, b.c0, b.c1);
+  fq_mul(m, s0, s1);
   Fq2 out;
-  sub(out.c0, t0, t1);
-  sub(m, m, t0);
-  sub(out.c1, m, t1);
+  fq_sub(out.c0, t0, t1);
+  fq_sub(m, m, t0);
+  fq_sub(out.c1, m, t1);
   r = out;
 }
 
 // (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u: 2 Fq products.
 static inline void sqr(Fq2 &r, const Fq2 &a) {
   Fq s, d, m;
-  add(s, a.c0, a.c1);
-  sub(d, a.c0, a.c1);
-  mul(m, a.c0, a.c1);
-  mul(r.c0, s, d);
-  add(r.c1, m, m);
+  fq_add(s, a.c0, a.c1);
+  fq_sub(d, a.c0, a.c1);
+  fq_mul(m, a.c0, a.c1);
+  fq_mul(r.c0, s, d);
+  fq_add(r.c1, m, m);
 }
 
 static inline void half(Fq2 &r, const Fq2 &a) {
@@ -345,7 +309,7 @@ static inline void half(Fq2 &r, const Fq2 &a) {
 }
 
 static inline void mul(Fq2 &r, const Fq2 &a, const Fq &s) {
-  mul(r.c0, a.c0, s); mul(r.c1, a.c1, s);
+  fq_mul(r.c0, a.c0, s); fq_mul(r.c1, a.c1, s);
 }
 
 // (9 + u) a = (9 a0 - a1) + (9 a1 + a0) u
@@ -355,8 +319,8 @@ static inline void mul_xi(Fq2 &r, const Fq2 &a) {
   add(t, t, t);
   add(t, t, t);
   add(t, t, a);  // 9a
-  sub(t.c0, t.c0, a.c1);
-  add(t.c1, t.c1, a.c0);
+  fq_sub(t.c0, t.c0, a.c1);
+  fq_add(t.c1, t.c1, a.c0);
   r = t;
 }
 
@@ -651,9 +615,9 @@ static void init_constants() {
     for (int j = 2; j < 6; ++j) mul(FROB1[j], FROB1[j - 1], FROB1[1]);
     for (int j = 0; j < 6; ++j) {
       Fq n0, n1;
-      mul(n0, FROB1[j].c0, FROB1[j].c0);
-      mul(n1, FROB1[j].c1, FROB1[j].c1);
-      add(FROB2[j], n0, n1);
+      fq_mul(n0, FROB1[j].c0, FROB1[j].c0);
+      fq_mul(n1, FROB1[j].c1, FROB1[j].c1);
+      fq_add(FROB2[j], n0, n1);
       mul(FROB3[j], FROB1[j], FROB2[j]);
     }
     FQ_THREE = fq_small(3);
@@ -692,8 +656,8 @@ struct G2Proj { Fq2 x, y, z; };
 
 static bool g1_on_curve(const G1Aff &P) {
   Fq l, r;
-  sqr(l, P.y);
-  sqr(r, P.x); mul(r, r, P.x); add(r, r, FQ_THREE);
+  fq_sqr(l, P.y);
+  fq_sqr(r, P.x); fq_mul(r, r, P.x); fq_add(r, r, FQ_THREE);
   return fq_eq(l, r);
 }
 
@@ -713,7 +677,7 @@ struct Pair {
 
 static void make_pair(Pair &pr, const G1Aff &P, const G2Aff &Q) {
   pr.xp = P.x;
-  neg(pr.nyp, P.y);
+  fq_neg(pr.nyp, P.y);
   pr.q = Q;
   pr.nq.x = Q.x;
   neg(pr.nq.y, Q.y);
@@ -900,8 +864,7 @@ static void final_exp_plain(Fq12 &r, const Fq12 &in) {
 // identity is Z = 0.  The addition is complete: the doubling case and an
 // identity operand are chosen by masks, not by branches, so that the
 // constant-time multiplication below runs the same instructions for every
-// scalar.  (The Fq operations themselves end in a conditional subtraction
-// that depends on the operand values, as in the pairing.)
+// scalar, the Fq operations' reductions included.
 
 static inline void f_add(Fq &r, const Fq &a, const Fq &b) { fq_add(r, a, b); }
 static inline void f_add(Fq2 &r, const Fq2 &a, const Fq2 &b) { fq2_add(r, a, b); }

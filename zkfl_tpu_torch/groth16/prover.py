@@ -116,28 +116,10 @@ def msm_g2(points, scalars, window: int = 0):
 @trace.spanned("groth16.scalar_mul")
 def mul_g2(p, k: int):
     """k p over G2, affine in and out (None = the identity): in csrc/host,
-    constant time in k, or by ``mul_g2_plain`` without the library."""
+    constant time in k."""
     trace.count("groth16.scalar_mul")
     jac = native.g2_mul_native(p, k)
-    if jac is None:
-        return mul_g2_plain(p, k)
-    trace.count("groth16.scalar_mul_native")
     return None if jac[2].is_zero() else jac[:2]
-
-
-def mul_g2_plain(p, k: int):
-    """Double-and-add over G2 in Python: the reference ``mul_g2`` is held to."""
-    k %= FR
-    if p is None or k == 0:
-        return None
-    acc = G2_JAC_INF
-    add = g2_to_jacobian(p)
-    while k:
-        if k & 1:
-            acc = g2_add_jac(acc, add)
-        add = g2_double_jac(add)
-        k >>= 1
-    return g2_from_jacobian(acc)
 
 
 def _derive_blinding(witness: Sequence[int], tag: str) -> int:
@@ -165,46 +147,11 @@ def _assemble_proof(pk: ProvingKey, witness: Sequence[int], msms: dict,
                     r: int, s: int) -> Proof:
     """Shared proof assembly from the five MSM results (host affine points,
     None = identity): msms keys a, b1, c, h (G1) and b2 (G2).  One call
-    into csrc/host (its six products constant time in r and s), or the
-    same sums in Python without the library."""
-    n_pub = pk.n_pub
-    public_signals = [x % FR for x in witness[1 : n_pub + 1]]
-    if native.pairing_available():
-        with trace.span("groth16.scalar_mul"):
-            pi_a, pi_b, pi_c = native.groth16_assemble_native(pk, msms, r, s)
-        trace.count("groth16.scalar_mul", 6)
-        trace.count("groth16.scalar_mul_native", 6)
-        return Proof(pi_a=pi_a, pi_b=pi_b, pi_c=pi_c, public_signals=public_signals)
-
-    pi_a_j = g1_to_jacobian(pk.alpha1)
-    if msms["a"] is not None:
-        pi_a_j = g1_add_jac(pi_a_j, g1_to_jacobian(msms["a"]))
-    pi_a_j = g1_add_jac(pi_a_j, mul_g1(pk.delta1, r))
-    pi_a = g1_from_jacobian(pi_a_j)
-
-    pi_b_j = g2_to_jacobian(pk.beta2)
-    if msms["b2"] is not None:
-        pi_b_j = g2_add_jac(pi_b_j, g2_to_jacobian(msms["b2"]))
-    if s:
-        pi_b_j = g2_add_jac(pi_b_j, g2_to_jacobian(mul_g2(pk.delta2, s)))
-    pi_b = g2_from_jacobian(pi_b_j)
-
-    pi_b1_j = g1_to_jacobian(pk.beta1)
-    if msms["b1"] is not None:
-        pi_b1_j = g1_add_jac(pi_b1_j, g1_to_jacobian(msms["b1"]))
-    pi_b1_j = g1_add_jac(pi_b1_j, mul_g1(pk.delta1, s))
-    pi_b1 = g1_from_jacobian(pi_b1_j)
-
-    pi_c_j = (1, 1, 0)
-    if msms["c"] is not None:
-        pi_c_j = g1_add_jac(pi_c_j, g1_to_jacobian(msms["c"]))
-    if msms["h"] is not None:
-        pi_c_j = g1_add_jac(pi_c_j, g1_to_jacobian(msms["h"]))
-    pi_c_j = g1_add_jac(pi_c_j, mul_g1(pi_a, s))
-    pi_c_j = g1_add_jac(pi_c_j, mul_g1(pi_b1, r))
-    pi_c_j = g1_add_jac(pi_c_j, mul_g1(pk.delta1, (-r * s) % FR))
-    pi_c = g1_from_jacobian(pi_c_j)
-
+    into csrc/host (its six products constant time in r and s)."""
+    public_signals = [x % FR for x in witness[1 : pk.n_pub + 1]]
+    with trace.span("groth16.scalar_mul"):
+        pi_a, pi_b, pi_c = native.groth16_assemble_native(pk, msms, r, s)
+    trace.count("groth16.scalar_mul", 6)
     return Proof(pi_a=pi_a, pi_b=pi_b, pi_c=pi_c, public_signals=public_signals)
 
 
@@ -213,7 +160,6 @@ def groth16_prove(
     pk: ProvingKey,
     structure: ConstraintSystem,
     witness: Optional[Sequence[int]] = None,
-    msm_g1=None,
     engine=None,
     blinding: Optional[Tuple[int, int]] = None,
 ) -> Proof:
@@ -228,8 +174,8 @@ def groth16_prove(
     (TorchEngine) runs the entire witness -> h(X) -> 5-MSM pipeline on device
     with the proving key resident (groth16/device_prover.py); otherwise the
     stage-by-stage path runs with the engine's msm/NTT primitives.  The
-    proof assembly is identical either way.  `msm_g1` remains as a raw
-    override for tests; `blinding` overrides the (r, s) nonces."""
+    proof assembly is identical either way.  `blinding` overrides the
+    (r, s) nonces."""
     if engine is None:
         from .engine import HostEngine
 
@@ -254,10 +200,9 @@ def groth16_prove(
     r, s = blinding if blinding is not None else default_blinding(witness)
 
     h_basis = getattr(pk, "h_basis", "monomial")
-    if msm_g1 is None and hasattr(engine, "fused_msms") and h_basis == "monomial":
+    if hasattr(engine, "fused_msms") and h_basis == "monomial":
         msms = engine.fused_msms(pk, structure, witness)
     else:
-        _msm_g1 = msm_g1 or engine.msm_g1
         a_e, b_e, c_e = engine.matrix_evals(structure.constraints, witness, pk.domain)
         if h_basis == "odd_evals":
             # snarkjs-basis H query (e.g. an imported zkey): scalars are the
@@ -274,11 +219,11 @@ def groth16_prove(
         else:
             h = engine.compute_h(a_e, b_e, c_e)
         msms = {
-            "a": _msm_g1(pk.a_query, witness),
-            "b1": _msm_g1(pk.b1_query, witness),
+            "a": engine.msm_g1(pk.a_query, witness),
+            "b1": engine.msm_g1(pk.b1_query, witness),
             "b2": engine.msm_g2(pk.b2_query, witness),
-            "c": _msm_g1(pk.c_query, witness[n_pub + 1 :]),
-            "h": _msm_g1(pk.h_query, h[: len(pk.h_query)]),
+            "c": engine.msm_g1(pk.c_query, witness[n_pub + 1 :]),
+            "h": engine.msm_g1(pk.h_query, h[: len(pk.h_query)]),
         }
     return _assemble_proof(pk, witness, msms, r, s)
 
@@ -317,26 +262,6 @@ def groth16_prove_many(
 def mul_g1(p, k: int):
     """k p over G1 for an affine p (None = the identity), returned as a
     Jacobian triple: (x, y, 1) from csrc/host, constant time in k, or
-    ``mul_g1_plain``'s triple without the library; (1, 1, 0) for the
-    identity either way."""
+    (1, 1, 0) for the identity."""
     trace.count("groth16.scalar_mul")
-    jac = native.g1_mul_native(p, k)
-    if jac is None:
-        return mul_g1_plain(p, k)
-    trace.count("groth16.scalar_mul_native")
-    return jac
-
-
-def mul_g1_plain(p, k: int):
-    """Double-and-add over G1 in Python: the reference ``mul_g1`` is held to."""
-    k %= FR
-    acc = (1, 1, 0)
-    if p is None or k == 0:
-        return acc
-    add = g1_to_jacobian(p)
-    while k:
-        if k & 1:
-            acc = g1_add_jac(acc, add)
-        add = g1_double_jac(add)
-        k >>= 1
-    return acc
+    return native.g1_mul_native(p, k)

@@ -14,31 +14,24 @@ from __future__ import annotations
 from typing import Sequence
 
 from .. import native, trace
-from ..field.bn254 import FR
-from ..field.curve import g1_add_jac, g1_from_jacobian, g1_neg, g1_to_jacobian
+from ..field.curve import g1_neg
 from ..field.pairing import pairing_check
-from .prover import Proof, mul_g1
+from .prover import Proof
 from .setup import VerifyingKey
 
 
 @trace.spanned("groth16.vk_x")
 def compute_vk_x(vk: VerifyingKey, public_signals: Sequence[int]):
     """IC_0 + sum_i s_i IC_i, affine (None = the identity): one csrc/host
-    call, or ``mul_g1`` a signal without the library."""
+    call."""
     if len(public_signals) != len(vk.ic) - 1:
         raise ValueError(
             f"expected {len(vk.ic) - 1} public signals, got {len(public_signals)}"
         )
-    if native.pairing_available():
-        with trace.span("groth16.scalar_mul"):
-            jac = native.g1_lincomb_native(vk.ic, public_signals)
-        trace.count("groth16.scalar_mul", len(public_signals))
-        trace.count("groth16.scalar_mul_native", len(public_signals))
-        return None if jac[2] == 0 else jac[:2]
-    acc = g1_to_jacobian(vk.ic[0])
-    for point, s in zip(vk.ic[1:], public_signals):
-        acc = g1_add_jac(acc, mul_g1(point, s % FR))
-    return g1_from_jacobian(acc)
+    with trace.span("groth16.scalar_mul"):
+        jac = native.g1_lincomb_native(vk.ic, public_signals)
+    trace.count("groth16.scalar_mul", len(public_signals))
+    return None if jac[2] == 0 else jac[:2]
 
 
 @trace.spanned("groth16.verify")
@@ -56,10 +49,9 @@ def groth16_verify(vk: VerifyingKey, proof: Proof, public_signals: Sequence[int]
         (proof.pi_c, vk.delta2),
     ]
     # Native C++ multi-pairing (csrc/host/zkfl_pairing.cpp; the reference
-    # verifies in 8-9 ms via snarkjs, ref:Report.pdf Table 3); falls back to
-    # the Python oracle when the library is unavailable or an input is
-    # degenerate.  groth16.pairing_native counts the checks the library
-    # decided.
+    # verifies in 8-9 ms via snarkjs, ref:Report.pdf Table 3); the Python
+    # oracle decides where the native loop meets a degenerate step.
+    # groth16.pairing_native counts the checks the library decided.
     trace.count("groth16.pairing")
     with trace.span("groth16.pairing"):
         ok = native.pairing_check_native(pairs)

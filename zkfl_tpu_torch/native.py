@@ -1,17 +1,20 @@
 """ctypes bridge to the native host libraries (csrc/host/).
 
-``zkfl_host.cpp`` is the host-side fast path for Poseidon/VectorHash/Merkle
-(the role circomlibjs WASM plays for the reference) and for the Poseidon
-gadget's witness (``poseidon_witness``: every S-box wire of one in-circuit
-hash); ``zkfl_pairing.cpp`` is the BN254 multi-pairing behind the Groth16
-verifier and the G1/G2 scalar multiplications of proof assembly and of the
+``zkfl_host.cpp`` is the host side of Poseidon/VectorHash/Merkle (the role
+circomlibjs WASM plays for the reference) and of the Poseidon gadget's
+witness (``poseidon_witness``: every S-box wire of one in-circuit hash);
+``zkfl_pairing.cpp`` is the BN254 multi-pairing behind the Groth16 verifier
+and the G1/G2 scalar multiplications of proof assembly and of the
 verifier's vk_x.  Each is compiled with g++ at first use into
 ``build/zkfl_tpu_torch/host/<source hash>/`` beside the package: under a
 temporary name, then renamed, so that several processes may build at once.
-Without g++ (or when the build fails) the callers fall back to the
-pure-Python oracles (zkfl_tpu_torch.poseidon.reference,
-zkfl_tpu_torch.field.pairing, the gadget's Python branch, the prover's
-double-and-add).
+
+The libraries are part of the port, as its CUDA kernels are: a call that
+needs one builds it or raises ``RuntimeError`` with g++'s message, and
+every function here returns its value.  The port keeps no Python copy of
+these paths.  The one ``None`` is ``pairing_check_native``'s answer to a
+degenerate step, which the verifier sends to the Python oracle
+(zkfl_tpu_torch.field.pairing).
 """
 
 from __future__ import annotations
@@ -36,11 +39,14 @@ PKG_DIR = Path(__file__).resolve().parent
 HOST_SRC = PKG_DIR / "csrc" / "host"
 BUILD_ROOT = PKG_DIR.parent / "build" / "zkfl_tpu_torch" / "host"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+STDERR_CHARS = 4000  # of g++'s message in a failed build's error: its first errors
 
 
-def build(source: str, headers: Sequence[str] = ()) -> Optional[Path]:
+def build(source: str, headers: Sequence[str] = ()) -> Path:
     """g++ build of csrc/host/<source> (once per hash of the source, its
-    headers and the flags); the library's path, or None without g++."""
+    headers and the flags); the library's path.  Raises RuntimeError,
+    naming the source and carrying g++'s message, when g++ is missing or
+    the build fails."""
     files = [HOST_SRC / source, *(HOST_SRC / h for h in headers)]
     digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
     for f in files:
@@ -52,47 +58,63 @@ def build(source: str, headers: Sequence[str] = ()) -> Optional[Path]:
         return lib_path
     gxx = shutil.which("g++")
     if gxx is None:
-        return None
+        raise RuntimeError(f"cannot build {files[0]}: g++ is not on PATH")
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".{lib_path.name}.{os.getpid()}"
     try:
         subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(files[0])],
-                       check=True, capture_output=True, timeout=600)
-    except (OSError, subprocess.SubprocessError):
+                       check=True, capture_output=True, text=True, timeout=600)
+    except (OSError, subprocess.SubprocessError) as e:
         tmp.unlink(missing_ok=True)
-        return None
+        why = e.stderr if isinstance(e, subprocess.CalledProcessError) else str(e)
+        raise RuntimeError(f"g++ failed to build {files[0]}:\n{why[:STDERR_CHARS]}") from e
     os.replace(tmp, lib_path)
     return lib_path
 
 
-_lib = None
-_tried = False
+_U64P = ctypes.POINTER(ctypes.c_uint64)
+_BUF, _OUT = ctypes.c_char_p, ctypes.c_void_p
+_INT, _LONG = ctypes.c_int, ctypes.c_long
+
+# Each export's argtypes and restype.
+_SIGNATURES = {
+    "zkfl_host.cpp": {
+        "poseidon_hash_batch": ([_INT, _LONG, _U64P, _U64P], None),
+        "vector_hash_batch": ([_INT, _LONG, _U64P, _U64P], None),
+        "merkle_build": ([_LONG, _U64P, _U64P], None),
+        "poseidon_witness": ([_INT, _OUT, _OUT, _BUF, _OUT, _OUT], None),
+    },
+    "zkfl_pairing.cpp": {
+        "bn254_pairing_check": ([_LONG, _U64P, _U64P], _INT),
+        "bn254_g1_mul": ([_BUF, _INT, _BUF, _OUT], _INT),
+        "bn254_g2_mul": ([_BUF, _INT, _BUF, _OUT], _INT),
+        "bn254_groth16_assemble": ([_BUF, _BUF, _BUF, _BUF, _BUF, _OUT], _INT),
+        "bn254_g1_lincomb": ([_LONG, _BUF, _BUF, _BUF, _OUT], _INT),
+        "bn254_group_op_counts": ([_OUT], None),
+        "bn254_miller": ([_LONG, _BUF, _BUF, _OUT], _INT),
+        "bn254_final_exp": ([_BUF, _OUT], None),
+        "bn254_final_exp_plain": ([_BUF, _OUT], None),
+    },
+}
 
 
-def get_lib() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    _tried = True
-    path = build("zkfl_host.cpp", ["poseidon_constants.h"])
-    if path is None:
-        return None
-    try:
-        lib = ctypes.CDLL(str(path))
-        u64p = ctypes.POINTER(ctypes.c_uint64)
-        lib.poseidon_hash_batch.argtypes = [ctypes.c_int, ctypes.c_long, u64p, u64p]
-        lib.vector_hash_batch.argtypes = [ctypes.c_int, ctypes.c_long, u64p, u64p]
-        lib.merkle_build.argtypes = [ctypes.c_long, u64p, u64p]
-        vp = ctypes.c_void_p
-        lib.poseidon_witness.argtypes = [ctypes.c_int, vp, vp, ctypes.c_char_p, vp, vp]
-        _lib = lib
-    except OSError:
-        _lib = None
-    return _lib
+@lru_cache(maxsize=None)
+def _load(source: str, headers: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """csrc/host/<source> built and loaded, its exports typed; once a
+    process."""
+    lib = ctypes.CDLL(str(build(source, headers)))
+    for name, (argtypes, restype) in _SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
 
 
-def available() -> bool:
-    return get_lib() is not None
+def get_lib() -> ctypes.CDLL:
+    return _load("zkfl_host.cpp", ("poseidon_constants.h",))
+
+
+def get_pairing_lib() -> ctypes.CDLL:
+    return _load("zkfl_pairing.cpp")
 
 
 def _to_limbs(vals: Sequence[int]) -> np.ndarray:
@@ -178,59 +200,14 @@ def merkle_levels(leaves: Sequence[int]) -> List[List[int]]:
 # BN254 pairing library (csrc/host/zkfl_pairing.cpp) — Groth16 verification
 # ---------------------------------------------------------------------------
 
-_pairing_lib = None
-_pairing_tried = False
-
-
-def get_pairing_lib() -> Optional[ctypes.CDLL]:
-    global _pairing_lib, _pairing_tried
-    if _pairing_lib is not None or _pairing_tried:
-        return _pairing_lib
-    _pairing_tried = True
-    path = build("zkfl_pairing.cpp")
-    if path is None:
-        return None
-    try:
-        lib = ctypes.CDLL(str(path))
-        u64p = ctypes.POINTER(ctypes.c_uint64)
-        lib.bn254_pairing_check.argtypes = [ctypes.c_long, u64p, u64p]
-        lib.bn254_pairing_check.restype = ctypes.c_int
-        buf, out = ctypes.c_char_p, ctypes.c_void_p
-        for name in ("bn254_g1_mul", "bn254_g2_mul"):
-            getattr(lib, name).argtypes = [buf, ctypes.c_int, buf, out]
-            getattr(lib, name).restype = ctypes.c_int
-        lib.bn254_groth16_assemble.argtypes = [buf, buf, buf, buf, buf, out]
-        lib.bn254_groth16_assemble.restype = ctypes.c_int
-        lib.bn254_g1_lincomb.argtypes = [ctypes.c_long, buf, buf, buf, out]
-        lib.bn254_g1_lincomb.restype = ctypes.c_int
-        lib.bn254_group_op_counts.argtypes = [out]
-        lib.bn254_group_op_counts.restype = None
-        lib.bn254_miller.argtypes = [ctypes.c_long, buf, buf, out]
-        lib.bn254_miller.restype = ctypes.c_int
-        for name in ("bn254_final_exp", "bn254_final_exp_plain"):
-            getattr(lib, name).argtypes = [buf, out]
-            getattr(lib, name).restype = None
-        _pairing_lib = lib
-    except OSError:
-        _pairing_lib = None
-    return _pairing_lib
-
-
-def pairing_available() -> bool:
-    return get_pairing_lib() is not None
-
 
 def pairing_check_native(pairs) -> Optional[bool]:
     """Native 4-limb pairing-product check: True/False (False for a point
-    off its curve), or None when the library is unavailable or the native
-    loop meets a degenerate step (caller falls back to the Python oracle,
-    zkfl_tpu_torch.field.pairing).
+    off its curve), or None when the loop meets a degenerate step (the
+    caller asks the Python oracle, zkfl_tpu_torch.field.pairing).
 
     pairs: [(P, Q)] with P an affine int pair (or None = identity) and Q an
     affine G2 pair of FQ2 coords (or None)."""
-    lib = get_pairing_lib()
-    if lib is None:
-        return None
     g1_vals: List[int] = []
     g2_vals: List[int] = []
     for P, Q in pairs:
@@ -247,7 +224,7 @@ def pairing_check_native(pairs) -> Optional[bool]:
         g2_vals += [xc[0], xc[1], yc[0], yc[1]]
     g1_arr = _to_limbs(g1_vals)
     g2_arr = _to_limbs(g2_vals)
-    rc = lib.bn254_pairing_check(len(pairs), _ptr(g1_arr), _ptr(g2_arr))
+    rc = get_pairing_lib().bn254_pairing_check(len(pairs), _ptr(g1_arr), _ptr(g2_arr))
     if rc < 0:
         return None
     return bool(rc)
@@ -257,9 +234,9 @@ def pairing_check_native(pairs) -> Optional[bool]:
 #
 # Points cross as affine standard-form coordinates, 32 little-endian bytes
 # each (G2: x.c0, x.c1, y.c0, y.c1, as bn254_pairing_check reads them), the
-# identity as a flag.  Each function returns None without the library, else
-# the product as a Jacobian triple with Z = 1, or the identity (1, 1, 0)
-# (G2: over FQ2), as groth16/prover.py's ``mul_g1`` returns it.
+# identity as a flag.  Each function returns the product as a Jacobian triple
+# with Z = 1, or the identity (1, 1, 0) (G2: over FQ2), as
+# groth16/prover.py's ``mul_g1`` returns it.
 
 _G1_INF = (1, 1, 0)
 
@@ -294,8 +271,6 @@ def _ints(raw: bytes) -> List[int]:
 def g1_mul_native(p, k: int):
     """k p over G1 in constant time in k (p affine, None = the identity)."""
     lib = get_pairing_lib()
-    if lib is None:
-        return None
     out = ctypes.create_string_buffer(64)
     if lib.bn254_g1_mul(_g1_coords(p), p is None, _bytes((k % FR,)), out):
         return _G1_INF
@@ -308,8 +283,6 @@ def g2_mul_native(p, k: int):
     from .field.curve import G2_JAC_INF
 
     lib = get_pairing_lib()
-    if lib is None:
-        return None
     out = ctypes.create_string_buffer(128)
     if lib.bn254_g2_mul(_g2_coords(p), p is None, _bytes((k % FR,)), out):
         return G2_JAC_INF
@@ -322,11 +295,8 @@ def groth16_assemble_native(pk, msms: dict, r: int, s: int):
     """(pi_A, pi_B, pi_C) of one Groth16 proof (affine, None = the identity)
     from ``pk``'s alpha1, beta1, delta1, beta2, delta2, the five MSM results
     ``msms`` (a, b1, c, h over G1, b2 over G2) and the blinding r, s, in one
-    call, every product constant time in r and s; None without the
-    library."""
+    call, every product constant time in r and s."""
     lib = get_pairing_lib()
-    if lib is None:
-        return None
     g1 = [pk.alpha1, pk.beta1, pk.delta1, msms["a"], msms["b1"], msms["c"], msms["h"]]
     g2 = [pk.beta2, pk.delta2, msms["b2"]]
     out = ctypes.create_string_buffer(256)
@@ -347,8 +317,6 @@ def g1_lincomb_native(points: Sequence, scalars: Sequence[int]):
     if len(points) != len(scalars) + 1:
         raise ValueError(f"{len(points)} points for {len(scalars)} scalars")
     lib = get_pairing_lib()
-    if lib is None:
-        return None
     out = ctypes.create_string_buffer(64)
     flags = bytes(p is None for p in points)
     coords = b"".join(map(_g1_coords, points))

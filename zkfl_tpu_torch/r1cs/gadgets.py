@@ -15,7 +15,6 @@ from __future__ import annotations
 from typing import List, Sequence
 
 from .. import native, trace
-from ..field.bn254 import FR
 from ..poseidon.grain import R_F, partial_rounds, poseidon_params
 from .builder import ConstraintSystem, LinComb
 
@@ -64,10 +63,9 @@ def poseidon_gadget(cs: ConstraintSystem, inputs: Sequence[LinComb]) -> LinComb:
     ~150-250 constraints per hash (src/circuits/lib/poseidon.circom:26).
     """
     trace.count("r1cs.poseidon")
-    if cs.witness_only and native.available():
-        # The wires and the hash of the fast path below, from csrc/host in
-        # one call.
-        trace.count("r1cs.poseidon_native")
+    if cs.witness_only:
+        # The wires and the hash from csrc/host in one call, in the wire
+        # order of the symbolic branch below (x^2, x^4, x^5 an S-box).
         wires, out = native.poseidon_witness([x.value for x in inputs])
         cs.values.extend(wires)
         return LinComb(cs, None, out)
@@ -76,35 +74,6 @@ def poseidon_gadget(cs: ConstraintSystem, inputs: Sequence[LinComb]) -> LinComb:
     C, M = poseidon_params(t)
     rp = partial_rounds(t)
     rf_half = R_F // 2
-
-    if cs.witness_only:
-        # Fast path: the whole permutation as plain int arithmetic with the
-        # EXACT wire-allocation order of the symbolic branch (x^2, x^4, x^5
-        # per S-box; full rounds touch all t elements, partial rounds only
-        # element 0).  ~6x faster than LinComb bookkeeping — the witness
-        # hot loop (SURVEY §7.4; reference WASM calculator does 45 ms for
-        # balance(8,3,4), this path brings us under it).
-        vals = cs.values
-        state_v = [0] + [x.value for x in inputs]
-        idx = 0
-        for r in range(R_F + rp):
-            state_v = [(x + C[idx + i]) % FR for i, x in enumerate(state_v)]
-            idx += t
-            sbox_range = range(t) if (r < rf_half or r >= rf_half + rp) else (0,)
-            for i in sbox_range:
-                x = state_v[i]
-                x2 = x * x % FR
-                x4 = x2 * x2 % FR
-                x5 = x4 * x % FR
-                vals.append(x2)
-                vals.append(x4)
-                vals.append(x5)
-                state_v[i] = x5
-            state_v = [
-                sum(state_v[j] * M[i][j] for j in range(t)) % FR
-                for i in range(t)
-            ]
-        return LinComb(cs, None, state_v[0])
 
     state: List[LinComb] = [cs.zero()] + list(inputs)
     idx = 0

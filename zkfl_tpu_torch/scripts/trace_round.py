@@ -27,10 +27,8 @@ metrics:
 - ``witness_hash_share`` (%): ``r1cs.poseidon`` inside ``r1cs.witness``
   over ``r1cs.witness``;
 - ``host_scalar_mul_ms`` (ms a proof): ``groth16.scalar_mul`` inside
-  ``groth16.assemble`` or ``groth16.verify``: where the host library
-  builds, its native calls (one a proof's assembly, one a verify's vk_x;
-  ``# counters`` has ``groth16.scalar_mul_native`` beside
-  ``groth16.scalar_mul``), else the Python double-and-add;
+  ``groth16.assemble`` or ``groth16.verify``: the host library's calls,
+  one a proof's assembly, one a verify's vk_x;
 - ``pipeline_host_ms`` (ms a proof): the ``pipeline.*`` spans less the
   ``device.sync`` spans inside them;
 - ``syncs_per_round``: ``device.syncs`` over the traced rounds, a round;
